@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels (csrc/*.cu).
+
+Every `.cu` file under `open_diffusiongs_tpu_torch/csrc/` is compiled by
+`nvcc` into ONE shared library with a plain C interface, loaded with
+`ctypes` (no PyTorch headers: the build takes seconds, not minutes).  The
+library lands in `<repo>/build/torch_kernels/<hash>/`, keyed by a hash of
+the sources and flags, so an edited kernel rebuilds and an unchanged one is
+reused.  Nothing is built at import time: the first wrapper that launches a
+kernel on a CUDA tensor calls `load_library()`.
+
+No `--use_fast_math`: the blend's `expf` must stay IEEE-accurate to hold the
+rasterizer's 2e-5 parity bar.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+LIB_NAME = "libodgs_kernels.so"
+
+_lib = None
+BUILD_SECONDS = None   # nvcc wall time in this process (None: reused)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of the kernels' launch functions (csrc/*.cu); each returns
+# the cudaError_t of its launch.
+SIGNATURES = {
+    # q, k, v, o, b, lp, h, dh, l_real, scale,
+    # q/k/v batch and row strides (elements), stream
+    "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _L, _L, _L, _L, _L, _L, _P],
+    # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d, stream
+    "odgs_blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels cannot build")
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into build/torch_kernels/<hash>/ (no-op when the
+    library for these sources exists).  Returns the library path."""
+    global BUILD_SECONDS
+    out_dir = build_dir()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, lib_path)          # atomic: a reader never sees a torn .so
+    BUILD_SECONDS = time.perf_counter() - t0
+    return lib_path
+
+
+def load_library(verbose: bool = False) -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build(verbose=verbose)))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch function."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{err}")

@@ -1,0 +1,81 @@
+"""Single image -> 3D Gaussians on the GPU (the port of run.py).
+
+  python -m open_diffusiongs_tpu_torch.run --image input.png \
+      --matting border --out output/
+
+Runs the object model of configs/diffusionGS_rel.yaml with random weights
+(no trained checkpoint is in the repository yet): a smoke test of the
+sampling path, not a quality result.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import numpy as np
+from PIL import Image
+
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs", "diffusionGS_rel.yaml")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--image", required=True, nargs="+",
+                   help="one or more input images (sampled as one batch)")
+    p.add_argument("--config", default=CONFIG)
+    p.add_argument("--out", default="output")
+    p.add_argument("--seed", type=int, default=62)
+    p.add_argument("--foreground-ratio", type=float, default=0.825)
+    p.add_argument("--resolution", type=int, default=256)
+    p.add_argument("--matting", default="u2net",
+                   choices=["u2net", "grabcut", "border"],
+                   help="background removal; u2net needs weights the port "
+                        "does not have — pass grabcut/border to acknowledge "
+                        "the fallback")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    import torch
+
+    from open_diffusiongs_tpu_torch import require_cuda
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    from open_diffusiongs_tpu_torch.systems.builder import (build_system,
+                                                            load_config)
+
+    device = require_cuda()
+    cfg = load_config(args.config)
+    system = build_system(cfg["system_type"], cfg["system"], device=device)
+    logging.warning("no trained weights in the repository: random init "
+                    "(smoke-test mode)")
+    system.init_params(torch.Generator(device=device).manual_seed(0))
+    pipe = DiffusionGSPipeline(system)
+
+    multi = len(args.image) > 1
+    subdirs = [os.path.join(args.out, os.path.splitext(
+                   os.path.basename(im))[0]) if multi else args.out
+               for im in args.image]
+    for d in subdirs:
+        os.makedirs(d, exist_ok=True)
+    outs = pipe.batch(args.image, seed=args.seed,
+                      foreground_ratio=args.foreground_ratio,
+                      resolution=args.resolution, matting=args.matting,
+                      save_ply=[os.path.join(d, "gaussians.ply")
+                                for d in subdirs])
+
+    def save_png(path, chw):
+        img = np.clip(np.moveaxis(chw, 0, -1), 0.0, 1.0)
+        Image.fromarray((img * 255.0 + 0.5).astype(np.uint8)).save(path)
+
+    for d, out in zip(subdirs, outs):
+        save_png(os.path.join(d, "input_processed.png"), out.input_image)
+        for i in range(out.renders.shape[0]):
+            save_png(os.path.join(d, f"render_{i}.png"), out.renders[i])
+        print(f"saved outputs to {d}/ ({out.gaussians.xyz.shape[0]} "
+              f"gaussians, overflow {out.stats})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,115 @@
+"""Build the port's systems from the repo's YAML config surface.
+
+Counterpart of open_diffusiongs_tpu/systems/builder.py:49-122 for the
+object system.  The same configs/*.yaml drive both packages (ROADMAP
+rule 4): keys that steer TPU-only machinery are accepted, ignored, and
+named in one log line.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Optional
+
+import torch
+import yaml
+
+from ..ops.rasterize import TPU_ONLY_FIELDS, RasterizeConfig
+
+log = logging.getLogger(__name__)
+
+# reference shape_model keys -> DGSDenoiser arguments (None = ignored)
+_SHAPE_MODEL_MAP = {
+    "width": "width",
+    "in_channels": "in_channels",
+    "patch_size": "patch_size",
+    "n_gaussians": "n_gaussians",
+    "dim_heads": "dim_heads",
+    "num_layers": "num_layers",
+    "ray_pe_type": "ray_pe_type",
+    "hard_pixelalign": "hard_pixelalign",
+    # the [-1, 1] xyz clamp of training mode (sampling never applies it)
+    "clip_xyz": None,
+    "gaussians_sh_degree": "gaussians_sh_degree",
+    "range_setting_near": "range_setting_near",
+    "range_setting_far": "range_setting_far",
+    "gs_raw_offset_scaling": "gs_raw_offset_scaling",
+    "gs_raw_offset_opacity": "gs_raw_offset_opacity",
+    # reference knobs with a fixed answer (unused by the shipped model)
+    "prior_distribution": None, "use_gssplat": None,
+    "grad_checkpoint_every": None, "use_downsample": None,
+    "num_latents": None, "range_setting_type": None,
+    "pretrained_model_name_or_path": None,
+}
+# shape_model keys that steer TPU-only machinery (ignored, logged)
+TPU_ONLY_SHAPE_KEYS = ("use_flash", "use_checkpoint", "remat_save_attn",
+                       "remat_save_mlp")
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """A config YAML as a plain dict (the port reads `system_type` and
+    `system`, which hold no interpolations)."""
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def shape_model_kwargs(cfg: Dict[str, Any], bf16: bool = True,
+                       ignored: Optional[list] = None) -> Dict[str, Any]:
+    """Reference shape_model keys -> DGSDenoiser keyword arguments; the
+    names of ignored TPU-only keys are appended to `ignored`."""
+    out: Dict[str, Any] = {}
+    for k, v in dict(cfg).items():
+        if k in TPU_ONLY_SHAPE_KEYS:
+            if ignored is not None:
+                ignored.append(k)
+            continue
+        if k == "quant_int8":
+            if v:
+                raise NotImplementedError(
+                    "shape_model.quant_int8 (W8A8 serving) is not ported")
+            continue
+        if k not in _SHAPE_MODEL_MAP:
+            raise ValueError(f"unknown shape_model key {k!r}")
+        if _SHAPE_MODEL_MAP[k] is not None:
+            out[_SHAPE_MODEL_MAP[k]] = v
+    out.setdefault("dtype", torch.bfloat16 if bf16 else torch.float32)
+    return out
+
+
+def raster_config(cfg: Dict[str, Any], ignored: Optional[list] = None
+                  ) -> RasterizeConfig:
+    """RasterizeConfig from a `system.raster` block; the TPU-only fields it
+    sets are accepted, have no effect, and their names are appended to
+    `ignored`."""
+    if ignored is not None:
+        ignored.extend(k for k in cfg if k in TPU_ONLY_FIELDS)
+    return RasterizeConfig(**dict(cfg))
+
+
+def build_system(system_type: str, system_cfg: Dict[str, Any],
+                 bf16: bool = True, raster: Optional[RasterizeConfig] = None,
+                 device: torch.device | str = "cpu"):
+    """system_type: 'diffusion-gs-system' (the scene system is not ported
+    yet).  Returns the system with its (uninitialized) model on `device`."""
+    from .. import find
+    from .object_system import ObjectSystemConfig
+
+    cfg = dict(system_cfg)
+    ignored: list = []
+    noise = dict(cfg.get("noise_scheduler", {}))
+    kwargs: Dict[str, Any] = dict(
+        num_inference_steps=cfg.get("num_inference_steps", 30),
+        num_train_timesteps=noise.get("num_train_timesteps", 1000),
+        shape_model=shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
+                                       ignored=ignored),
+    )
+    if raster is not None:
+        kwargs["raster"] = raster
+    elif "raster" in cfg:
+        kwargs["raster"] = raster_config(cfg["raster"], ignored=ignored)
+    if "bg_color" in cfg:
+        kwargs["bg_color"] = tuple(cfg["bg_color"])
+    if ignored:
+        log.info("open_diffusiongs_tpu_torch: ignoring TPU-only config keys: "
+                 "%s", ", ".join(ignored))
+    return find(system_type)(ObjectSystemConfig(**kwargs), device=device)
