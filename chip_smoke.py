@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's object-sampling path once on one NVIDIA GPU.
+"""Drive the PyTorch port's object-sampling path and object training step
+once on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
 Phases, one summary line each (every failure raises and exits non-zero):
   1. device    card name / power limit (nvidia-smi), torch, CUDA, nvcc and
                triton versions;
-  2. build     nvcc builds both kernels from open_diffusiongs_tpu_torch/csrc;
+  2. build     nvcc builds every kernel from open_diffusiongs_tpu_torch/csrc
+               (one nvcc per source, in parallel);
   3. attention the flash-attention kernel against flash_mha_packed_ref on
                bf16 inputs at the 256^2 DiT shape (L = 4098, 16 heads of 64)
                and on a ragged layout (Lp > l_real, garbage pad rows);
@@ -17,7 +19,30 @@ Phases, one summary line each (every failure raises and exits non-zero):
                steps, 4 views) with random weights from seed 0, through
                DiffusionGSPipeline.batch on extra_files/test_cases/sphere.png
                at 256^2, twice; the second run is timed and its kernel
-               launches counted.
+               launches counted;
+  6. attention training kernels
+               the forward-with-lse and the backward kernels against
+               flash_mha_packed_ref(with_stats=True) /
+               flash_mha_packed_bwd_ref at the train path's shape (b = 4,
+               L = 4098, q/k/v column slices of a fused qkv, each batch
+               element at its own scale) and on a ragged Lp = 4608
+               layout with 1e4 garbage in the pad rows of q/k/v and dO;
+               bounds, per batch element: o rel-max 8e-3, lse max abs 1e-3
+               (base-2 units), dq/dk/dv rel-max 1e-2 each, pad-row grads
+               exactly 0;
+  7. blend backward
+               the blend backward kernel against blend_bwd_ref on phase
+               4's view with mean-squared cotangents against a seeded
+               random target (atol 2e-5, rtol 2e-4, and max|err| / max|ref|
+               1e-5); the table gradient d_packed through BlendTiles
+               twice, bit-identical;
+  8. train path
+               the same config with system.use_lpips false, random weights
+               from seed 0, AdamW / cosine / clip 0.5 / EMA 0.9999 from the
+               config, a b = 4 batch of 4 input + 4 supervision views at
+               256^2 built in memory, from step 151 (every loss term
+               weighted): 1 warm-up step and 3 timed steps; kernel
+               launches counted and held against the derived counts.
 Then the kernels' JSON line, the card line, and the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.  Without a CUDA
 device it exits non-zero and prints no result.
@@ -37,10 +62,21 @@ CONFIG = os.path.join(ROOT, "configs", "diffusionGS_rel.yaml")
 IMAGE = os.path.join(ROOT, "extra_files", "test_cases", "sphere.png")
 
 ATTN_REL_BOUND = 8e-3    # max|err| / max|ref| in bf16 (the TPU kernel's bar)
+LSE_ABS_BOUND = 1e-3     # base-2 log-sum-exp, max abs
+GRAD_REL_BOUND = 1e-2    # dq / dk / dv max|err| / max|ref| in bf16
 BLEND_ABS_BOUND = 2e-5   # the rasterizer's forward parity bar (atol)
+BLEND_BWD_TOL = dict(atol=2e-5, rtol=2e-4)   # tests/test_rasterize.py:307-326
+# dg max|err| / max|ref|, free of the loss's scale: f32 sums over a tile's
+# 256 pixels in another order agree to ~1e-6 of the largest row
+BLEND_BWD_REL_BOUND = 1e-5
 RES = 256
 N_VIEWS = 4
 STEPS = 30
+TRAIN_BATCH = 4          # the config's per-device batch_size
+TRAIN_START_STEP = 151   # every C()-scheduled loss term at full weight
+TRAIN_STEPS = 3          # timed, after one warm-up step
+QKV_SCALES = (1.0, 0.6, 1.4, 0.8)   # phase 6, one per batch element
+DO_SCALES = (1.0, 2.0, 0.5, 1.5)
 
 
 def card_line() -> str:
@@ -205,6 +241,296 @@ def phase_blend(torch, dev, system) -> dict:
     if not max(errs) <= BLEND_ABS_BOUND:
         raise AssertionError(f"blend kernel: max abs error {max(errs):.3g} "
                              f"> {BLEND_ABS_BOUND}")
+    return res, (pre, tiles_x)
+
+
+def rel_max(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def attention_train_case(torch, dev, gen, l_real, lp):
+    """Stats forward + backward, kernel vs plain, at the train path's batch
+    on bf16 column slices of a fused qkv; rows >= l_real of qkv and dO hold
+    1e4.  Each batch element has its own scale of qkv and of dO, so a
+    kernel that read another element's rows, lse or delta would be off by
+    far more than the bounds; errors are relative per element."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    h, dh, b = 16, 64, TRAIN_BATCH
+    qkv = torch.randn((b, lp, 3 * h * dh), generator=gen, device=dev)
+    do = torch.randn((b, lp, h * dh), generator=gen, device=dev)
+    qkv *= torch.tensor(QKV_SCALES, device=dev)[:, None, None]
+    do *= torch.tensor(DO_SCALES, device=dev)[:, None, None]
+    qkv, do = qkv.to(torch.bfloat16), do.to(torch.bfloat16)
+    qkv[:, l_real:] = 1e4
+    do[:, l_real:] = 1e4
+    q, k, v = qkv.chunk(3, dim=-1)
+    kw = dict(num_heads=h, l_real=l_real)
+    o, lse = attention.flash_mha_packed(q, k, v, with_stats=True, **kw)
+    o_r, lse_r = attention.flash_mha_packed_ref(q, k, v, with_stats=True,
+                                                **kw)
+    grads = attention.flash_mha_packed_bwd(q, k, v, o, do, lse, **kw)
+    refs = attention.flash_mha_packed_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+
+    def rel(out, ref):          # the worst batch element
+        return max(rel_max(out[i], ref[i]) for i in range(b))
+
+    res = {"o_rel_max": rel(o[:, :l_real], o_r[:, :l_real]),
+           "lse_max_abs": float((lse - lse_r)[:, :l_real].abs().max()),
+           "lse_pad_zero": bool((lse[:, l_real:] == 0).all())}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"attention backward: non-finite {name}")
+        res[f"{name}_rel_max"] = rel(g, r)
+        res[f"{name}_max_abs"] = float((g.float() - r.float()).abs().max())
+        res[f"{name}_pad_zero"] = bool((g[:, l_real:] == 0).all())
+    del o_r, lse_r, refs
+    return res, (q, k, v, o, do, lse, kw)
+
+
+def phase_attention_train(torch, dev) -> dict:
+    import torch.nn.functional as F
+
+    from open_diffusiongs_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(2)
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    full, (q, k, v, o, do, lse, kw) = attention_train_case(torch, dev, gen,
+                                                            l, l)
+    ragged, _ = attention_train_case(torch, dev, gen, l, 4608)
+    torch.cuda.empty_cache()
+    b = TRAIN_BATCH
+    fwd_ms = cuda_ms(lambda: attention.flash_mha_packed(
+        q, k, v, with_stats=True, **kw), 20)
+    fwd_plain_ms = cuda_ms(lambda: attention.flash_mha_packed_ref(
+        q, k, v, with_stats=True, **kw), 3)
+    bwd_ms = cuda_ms(lambda: attention.flash_mha_packed_bwd(
+        q, k, v, o, do, lse, **kw), 20)
+    bwd_plain_ms = cuda_ms(lambda: attention.flash_mha_packed_bwd_ref(
+        q, k, v, o, do, lse, **kw), 3)
+    q4, k4, v4 = (x.reshape(b, l, 16, 64).transpose(1, 2).detach()
+                  .requires_grad_(True) for x in (q, k, v))
+    do4 = do.reshape(b, l, 16, 64).transpose(1, 2)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 20)
+    res = {"full": full, "ragged_lp4608": ragged,
+           "fwd_stats_ms": fwd_ms, "fwd_stats_plain_ms": fwd_plain_ms,
+           "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+           "sdpa_fwd_bwd_ms": sdpa_ms,
+           "shape": f"b={b} L={l} h=16 dh=64 bf16, fused qkv"}
+    print(f"[6 attention training kernels] {json.dumps(res)}", flush=True)
+    for case, r in (("L=4098", full), ("ragged Lp=4608", ragged)):
+        checks = [("o rel-max", r["o_rel_max"], ATTN_REL_BOUND),
+                  ("lse max abs", r["lse_max_abs"], LSE_ABS_BOUND)]
+        checks += [(f"{n} rel-max", r[f"{n}_rel_max"], GRAD_REL_BOUND)
+                   for n in ("dq", "dk", "dv")]
+        for name, val, bound in checks:
+            if not val <= bound:
+                raise AssertionError(f"attention training {case}: {name} "
+                                     f"{val:.3g} > {bound}")
+        for n in ("lse", "dq", "dk", "dv"):
+            if not r[f"{n}_pad_zero"]:
+                raise AssertionError(f"attention training {case}: {n} pad "
+                                     f"rows are not exactly 0")
+    res["max_abs_err_fwd"] = max(full["lse_max_abs"],
+                                 ragged["lse_max_abs"])
+    res["max_abs_err_bwd"] = max(r[f"{n}_max_abs"] for r in (full, ragged)
+                                 for n in ("dq", "dk", "dv"))
+    return res
+
+
+def phase_blend_bwd(torch, dev, system, view) -> dict:
+    """Phase 4's view: cotangents of the mean-squared error of its render,
+    alpha and depth against a seeded random target, the backward kernel vs
+    its plain twin, and the table gradient through BlendTiles twice."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    from open_diffusiongs_tpu_torch.ops import rasterize as rz
+    pre, tiles_x = view
+    bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, system.cfg.raster,
+                                grad_map=True)
+    packed = rz.pack_rows(pre).detach()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    target = torch.rand((RES, RES, 5), generator=gen, device=dev)
+    bg = torch.ones(3, device=dev)
+
+    def l2(t_fin, acc_c, acc_d):     # mean-squared, as the training loss
+        c, a, d = rz.blend_tiles_g(t_fin, acc_c, acc_d, tiles_x, tiles_x, bg)
+        return (((c - target[..., :3]) ** 2).mean()
+                + ((a - target[..., 3]) ** 2).mean()
+                + ((d - target[..., 4]) ** 2).mean())
+
+    with torch.no_grad():
+        fwd = blend_kernel.blend_tiles(packed, bins.idx, bins.counts, tiles_x)
+    leaves = [x.clone().requires_grad_(True) for x in fwd]
+    cot = torch.autograd.grad(l2(*leaves), leaves)
+    args = (packed, bins.idx, bins.counts, *fwd, *cot, tiles_x)
+    dg = blend_kernel.blend_bwd(*args)
+    ref = blend_kernel.blend_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err = (dg - ref).abs()
+    excess = float((err - BLEND_BWD_TOL["rtol"] * ref.abs()).max())
+
+    def table_grad():
+        p = packed.clone().requires_grad_(True)
+        out = blend_kernel.BlendTiles.apply(p, bins.idx, bins.counts,
+                                            bins.gidx, tiles_x)
+        return torch.autograd.grad(l2(*out), p)[0]
+
+    d1, d2 = table_grad(), table_grad()
+    ms = cuda_ms(lambda: blend_kernel.blend_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: blend_kernel.blend_bwd_ref(*args), 1)
+    res = {"max_abs_err": float(err.max()),
+           "max_ref": float(ref.abs().max()),
+           "rel_max_err": float(err.max() / ref.abs().max()),
+           "max_err_minus_rtol_ref": excess,
+           "nonzero_rows": int((dg != 0).any(-1).sum()),
+           "d_packed_bit_identical": bool(torch.equal(d1, d2)),
+           "d_packed_finite": bool(torch.isfinite(d1).all()),
+           "ms": ms, "plain_ms": plain_ms,
+           "shape": f"T={bins.idx.shape[0]} K={bins.idx.shape[1]} "
+                    f"N={packed.shape[0] - 1}"}
+    print(f"[7 blend backward] {json.dumps(res)}", flush=True)
+    if not excess <= BLEND_BWD_TOL["atol"]:
+        raise AssertionError(f"blend backward: |err| - rtol*|ref| = "
+                             f"{excess:.3g} > atol {BLEND_BWD_TOL['atol']}")
+    if not res["rel_max_err"] <= BLEND_BWD_REL_BOUND:
+        raise AssertionError(f"blend backward: rel-max error "
+                             f"{res['rel_max_err']:.3g} > "
+                             f"{BLEND_BWD_REL_BOUND}")
+    if res["nonzero_rows"] == 0:
+        raise AssertionError("blend backward: every gradient row is zero")
+    if not (res["d_packed_bit_identical"] and res["d_packed_finite"]):
+        raise AssertionError("blend backward: d_packed differs between two "
+                             "runs or is not finite")
+    return res
+
+
+def train_batch(torch, dev):
+    """b = 4, 4 input + 4 supervision views at 256^2, in memory: uniform
+    images from a numpy seed, the object camera template, depth 3.0, masks
+    of ones."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.pipeline import object_camera_template
+    b, v = TRAIN_BATCH, N_VIEWS
+    c2ws, fxy = object_camera_template(v, h=RES, w=RES)
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    cams = dict(c2ws=t(np.broadcast_to(c2ws, (b, v, 4, 4))),
+                fxfycxcys=t(np.broadcast_to(fxy, (b, v, 4))))
+    return {
+        "rgbs_input": t(rng.uniform(size=(b, v, 3, RES, RES))),
+        "c2ws_input": cams["c2ws"], "fxfycxcys_input": cams["fxfycxcys"],
+        "depths_input": torch.full((b, v, 1, RES, RES), 3.0, device=dev),
+        "masks_input": torch.ones((b, v, 1, RES, RES), device=dev),
+        "rgbs": t(rng.uniform(size=(b, v, 3, RES, RES))),
+        "masks": torch.ones((b, v, 1, RES, RES), device=dev), **cams,
+    }
+
+
+def phase_train(torch, dev) -> dict:
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer, make_train_step)
+    from open_diffusiongs_tpu_torch.systems.builder import (
+        build_optimizer_config, build_system, load_config)
+    cfg = load_config(CONFIG)
+    # no LPIPS weights ship with the repo (as bench.py:108 runs it)
+    system_cfg = dict(cfg["system"], use_lpips=False)
+    system = build_system(cfg["system_type"], system_cfg, device=dev)
+    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    model = system.model
+    params = dict(model.named_parameters())
+    opt_cfg = build_optimizer_config(cfg["system"], cfg["trainer"])
+    optimizer = make_optimizer(opt_cfg, params.items())
+    state = init_train_state(params, optimizer, ema_decay=0.9999)
+    state.step = TRAIN_START_STEP
+    gen = torch.Generator(device=dev).manual_seed(7)
+    train_step = make_train_step(
+        lambda batch, step: system.train_loss(batch, step, generator=gen),
+        optimizer, ema_decay=0.9999)
+    batch = train_batch(torch, dev)
+
+    state, _ = train_step(state, batch)                    # warm-up
+    torch.cuda.synchronize()
+    watch = ["transformer.0.attn.qkv.weight", "upsampler.linear.weight",
+             "image_token_decoder.linear.weight"]
+    before = {k: params[k].detach().clone() for k in watch}
+    ema_before = {k: state.ema_params[k].clone() for k in watch}
+    torch.cuda.reset_peak_memory_stats(dev)
+    attention.LAUNCHES = attention.LAUNCHES_STATS = 0
+    attention.LAUNCHES_BWD = 0
+    blend_kernel.LAUNCHES = blend_kernel.LAUNCHES_BWD = 0
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t0,
+                      "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": optimizer.lr()})
+    launches = {"attention_fwd": attention.LAUNCHES,
+                "attention_fwd_lse": attention.LAUNCHES_STATS,
+                "attention_bwd": attention.LAUNCHES_BWD,
+                "blend_fwd": blend_kernel.LAUNCHES,
+                "blend_bwd": blend_kernel.LAUNCHES_BWD}
+    # Per step: every DiT layer runs its attention forward twice under
+    # block checkpointing (the forward and the backward's recompute) and
+    # its backward once; the render blends (and back-propagates) each of
+    # the b x 4 supervision views once.
+    n_layers = len(model.transformer)
+    views = TRAIN_BATCH * N_VIEWS
+    want = {"attention_fwd": 0,
+            "attention_fwd_lse": TRAIN_STEPS * n_layers * 2,
+            "attention_bwd": TRAIN_STEPS * n_layers,
+            "blend_fwd": TRAIN_STEPS * views,
+            "blend_bwd": TRAIN_STEPS * views}
+    qkv_grad_norms = [float(model.transformer[i].attn.qkv.weight.grad.norm())
+                      for i in range(n_layers)]
+    # image_token_decoder makes 262,144 of the 262,146 Gaussians (one per
+    # pixel); the 2 free ones (upsampler) can sit behind the nearest-K cut
+    # of every tile at init statistics and then get no gradient
+    head_grad = {k: float(params[k].grad.norm()) for k in watch[1:]}
+    secs = sum(s["seconds"] for s in steps) / len(steps)
+    res = {"steps": steps, "seconds_per_step": secs,
+           "samples_per_second": TRAIN_BATCH / secs,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": launches, "expected_launches": want,
+           "overflow_gaussians": int(m["overflow_gaussians"]),
+           "overflow_tiles": int(m["overflow_tiles"]),
+           "overflow_frac": float(m["overflow_frac"]),
+           "loss_terms": {k: float(m[k]) for k in m if k.startswith("loss_")},
+           "psnr": float(m["psnr"]),
+           "min_qkv_grad_norm": min(qkv_grad_norms),
+           "head_grad_norms": head_grad,
+           "param_change": {k: float((params[k].detach() - before[k])
+                                     .abs().max())
+                            for k in watch},
+           "ema_change": {k: float((state.ema_params[k] - ema_before[k])
+                                   .abs().max()) for k in watch},
+           "batch": f"b={TRAIN_BATCH}, {N_VIEWS}+{N_VIEWS} views at "
+                    f"{RES}^2, from step {TRAIN_START_STEP}",
+           "card": card_line()}
+    print(f"[8 train path] {json.dumps(res)}", flush=True)
+    if launches != want:
+        raise AssertionError(f"train kernel launches {launches} != {want}")
+    if not all(torch.isfinite(torch.tensor(s["loss"])) for s in steps):
+        raise AssertionError("non-finite training loss")
+    if not all(torch.isfinite(p).all() for p in params.values()):
+        raise AssertionError("non-finite parameters after training")
+    if not min(qkv_grad_norms) > 0:
+        raise AssertionError(f"zero qkv gradient in a DiT layer: "
+                             f"{qkv_grad_norms}")
+    if not head_grad["image_token_decoder.linear.weight"] > 0:
+        raise AssertionError(f"zero Gaussian-head gradient: {head_grad}")
+    if not min(res["param_change"].values()) > 0:
+        raise AssertionError(f"params did not change: {res['param_change']}")
+    if not min(res["ema_change"].values()) > 0:
+        raise AssertionError(f"EMA did not move: {res['ema_change']}")
     return res
 
 
@@ -272,8 +598,13 @@ def main() -> int:
     phase_build()
     attn = phase_attention(torch, dev)
     system = build_system(torch, dev)
-    blend = phase_blend(torch, dev, system)
+    blend, view = phase_blend(torch, dev, system)
     main_res = phase_main(torch, dev, system)
+    attn_train = phase_attention_train(torch, dev)
+    blend_bwd = phase_blend_bwd(torch, dev, system, view)
+    del system, view
+    torch.cuda.empty_cache()
+    train = phase_train(torch, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "flax", "optax", "orbax")
@@ -296,6 +627,25 @@ def main() -> int:
          "launches": main_res["launches"]["blend"],
          "max_abs_err": blend["max_abs_err"], "ms": blend["ms"],
          "plain_ms": blend["plain_ms"]},
+        {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
+         "source": src + "flash_attn_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
+         "launches": train["launches"]["attention_fwd_lse"],
+         "max_abs_err": attn_train["max_abs_err_fwd"],
+         "ms": attn_train["fwd_stats_ms"],
+         "plain_ms": attn_train["fwd_stats_plain_ms"]},
+        {"name": "flash_mha_packed_bwd", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
+         "launches": train["launches"]["attention_bwd"],
+         "max_abs_err": attn_train["max_abs_err_bwd"],
+         "ms": attn_train["bwd_ms"], "plain_ms": attn_train["bwd_plain_ms"]},
+        {"name": "blend_bwd", "route": "cuda",
+         "source": src + "blend_bwd.cu",
+         "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
+         "launches": train["launches"]["blend_bwd"],
+         "max_abs_err": blend_bwd["max_abs_err"], "ms": blend_bwd["ms"],
+         "plain_ms": blend_bwd["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -8,6 +8,11 @@
 //   keys >= l_real are excluded (their K and V rows are zeroed in shared
 //   memory and their scores set to -inf, so pad-row garbage cannot leak);
 //   output in bf16, pad rows (>= l_real) are garbage like on the TPU.
+// With a non-null `lse` (the training forward, body _fwd_kernel_packed_stats
+// :212) it also writes the base-2 log-sum-exp m + log2(l) of every real row
+// into lse [b, Lp, h] f32 (pad rows get 0): the one forward fact the
+// backward (flash_attn_bwd.cu) rebuilds P from.  One template flag, so the
+// stats-free sampling launch is unchanged.
 // The TPU kernel's V "ones column" (an MXU trick for the row sum) is not
 // carried over: the row sum is accumulated in registers.
 //
@@ -61,12 +66,13 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int DH>
+template <int DH, bool STATS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int lp, int h, int l_real,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int lp, int h, int l_real,
                  float scale, long long q_sb, long long q_sl, long long k_sb,
                  long long k_sl, long long v_sb, long long v_sl) {
   constexpr int LDQ = DH + 8;      // padded Qs/Ks row: conflict-free frags
@@ -236,18 +242,33 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o_sl + c) =
           pack_bf16x2(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
+  if (STATS && t4 == 0) {   // m and l are shared by the 4 threads of a group
+    float* lb = lse + (long long)bi * lp * h + head;
+    if (r0 < lp) lb[(long long)r0 * h] = r0 < l_real ? m_run[0] + log2f(l0) : 0.f;
+    if (r0 + 8 < lp)
+      lb[(long long)(r0 + 8) * h] = r0 + 8 < l_real ? m_run[1] + log2f(l1) : 0.f;
+  }
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int lp, int h, int l_real, float scale, long long q_sb,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int b, int lp, int h, int l_real, float scale, long long q_sb,
            long long q_sl, long long k_sb, long long k_sl, long long v_sb,
            long long v_sl, cudaStream_t stream) {
   const dim3 grid((lp + BQ - 1) / BQ, h, b);
-  flash_fwd_kernel<DH><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lp,
-      h, l_real, scale, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  auto* lp32 = static_cast<float*>(lse);
+  if (lse != nullptr)
+    flash_fwd_kernel<DH, true><<<grid, NTHREADS, 0, stream>>>(
+        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
+        v_sb, v_sl);
+  else
+    flash_fwd_kernel<DH, false><<<grid, NTHREADS, 0, stream>>>(
+        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
+        v_sb, v_sl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,9 +276,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).
 // Strides are in elements; the last dimension must be contiguous and every
-// row start 16-byte aligned (checked by the Python wrapper).
+// row start 16-byte aligned (checked by the Python wrapper).  `lse` is null
+// (no stats) or a contiguous [b, lp, h] f32 buffer.
 extern "C" int odgs_flash_attn_fwd_bf16(
-    const void* q, const void* k, const void* v, void* o, int b, int lp,
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int lp,
     int h, int dh, int l_real, float scale, long long q_sb, long long q_sl,
     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
     void* stream) {
@@ -266,11 +289,11 @@ extern "C" int odgs_flash_attn_fwd_bf16(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, o, b, lp, h, l_real, scale, q_sb, q_sl, k_sb,
-                        k_sl, v_sb, v_sl, s);
+      return launch<32>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
+                        k_sb, k_sl, v_sb, v_sl, s);
     case 64:
-      return launch<64>(q, k, v, o, b, lp, h, l_real, scale, q_sb, q_sl, k_sb,
-                        k_sl, v_sb, v_sl, s);
+      return launch<64>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
+                        k_sb, k_sl, v_sb, v_sl, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

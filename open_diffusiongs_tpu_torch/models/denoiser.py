@@ -83,7 +83,8 @@ class DGSDenoiser(nn.Module):
                  range_setting_near: float = 0.0,
                  range_setting_far: float = 500.0, dtype=torch.float32,
                  gs_raw_offset_scaling: float = 0.0,
-                 gs_raw_offset_opacity: float = 0.0):
+                 gs_raw_offset_opacity: float = 0.0,
+                 checkpoint: bool = False):
         super().__init__()
         if ray_pe_type not in ("relative_plk", "plk"):
             raise ValueError(f"unknown ray_pe_type {ray_pe_type}")
@@ -113,8 +114,10 @@ class DGSDenoiser(nn.Module):
                      else (n_gaussians, width))
         self.gaussians_pos_embedding = nn.Parameter(torch.zeros(pos_shape))
         self.transformer_input_layernorm = LayerNorm32(width, eps=1e-5)
+        # checkpoint: block recompute in the backward (the reference's
+        # use_checkpoint, the JAX package's remat)
         self.transformer = DiTStack(width, width // dim_heads, num_layers,
-                                    dtype=dtype)
+                                    dtype=dtype, checkpoint=checkpoint)
         self.upsampler = AdaLNHead(width, gs_ch, dtype=dtype)
         self.image_token_decoder = AdaLNHead(width, patch_size ** 2 * gs_ch,
                                              dtype=dtype)

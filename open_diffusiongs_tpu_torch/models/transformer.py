@@ -8,7 +8,11 @@ reference's models/transformers/utils_transformer.py):
     f32 and cast back, transformer.py:433-438); gates scale the residual
     branches;
   * DiTStack: a ModuleList of blocks, so the keys read
-    `transformer.{i}.attn.qkv.weight` like the reference checkpoints.
+    `transformer.{i}.attn.qkv.weight` like the reference checkpoints; with
+    `checkpoint=True` each block runs under
+    torch.utils.checkpoint (non-reentrant), the counterpart of the JAX
+    stack's `remat` (transformer.py:488, 585): the backward recomputes the
+    block's forward, attention kernel included.
 
 Numerical hazards pinned here:
   * the reference fuses q | k | v into one [3d, d] Linear (rows q, then k,
@@ -30,9 +34,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import flash_mha_packed
+from ..ops.attention import flash_attention
 
 
 class Linear(nn.Linear):
@@ -108,8 +113,9 @@ class TimestepEmbedder(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection (timm layout:
     output rows q | k | v, head-major columns inside each third).  The
-    attention itself is ops/attention.py::flash_mha_packed, fed column
-    slices of the qkv output without a copy."""
+    attention itself is ops/attention.py::flash_attention on the qkv
+    output (column slices, no copy): differentiable through its backward
+    kernels when training, the stats-free forward under no_grad."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -118,9 +124,8 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        o = flash_mha_packed(q, k, v, num_heads=self.num_heads,
-                             l_real=x.shape[1])
+        o = flash_attention(self.qkv(x), num_heads=self.num_heads,
+                            l_real=x.shape[1])
         return self.proj(o)
 
 
@@ -160,14 +165,23 @@ class DiTBlock(nn.Module):
 class DiTStack(nn.ModuleList):
     """`num_layers` DiT blocks run in a Python loop (the JAX package scans
     one block over stacked params).  Runs at the real token count L: the
-    attention kernel masks its ragged tile itself, so no padding."""
+    attention kernel masks its ragged tile itself, so no padding.
+    `checkpoint`: recompute each block in the backward instead of keeping
+    its activations (only while grad mode is on)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
-                 mlp_ratio: float = 4.0, dtype=torch.float32):
+                 mlp_ratio: float = 4.0, dtype=torch.float32,
+                 checkpoint: bool = False):
         super().__init__(DiTBlock(hidden_size, num_heads, mlp_ratio,
                                   dtype=dtype) for _ in range(num_layers))
+        self.checkpoint = checkpoint
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        remat = self.checkpoint and torch.is_grad_enabled()
         for block in self:
-            x = block(x, c)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x, c,
+                                                      use_reentrant=False)
+            else:
+                x = block(x, c)
         return x

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
 Every `.cu` file under `open_diffusiongs_tpu_torch/csrc/` is compiled by
-`nvcc` into ONE shared library with a plain C interface, loaded with
+its own `nvcc` process (all started together, then linked) into ONE shared
+library with a plain C interface, loaded with
 `ctypes` (no PyTorch headers: the build takes seconds, not minutes).  The
 library lands in `<repo>/build/torch_kernels/<hash>/`, keyed by a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one is
@@ -40,12 +41,19 @@ _F = ctypes.c_float
 # C signatures of the kernels' launch functions (csrc/*.cu); each returns
 # the cudaError_t of its launch.
 SIGNATURES = {
-    # q, k, v, o, b, lp, h, dh, l_real, scale,
+    # q, k, v, o, lse (or None), b, lp, h, dh, l_real, scale,
     # q/k/v batch and row strides (elements), stream
-    "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+    "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                  _L, _L, _L, _L, _L, _L, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, l_real, scale,
+    # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
+    "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_L] * 14
+                                + [_P],
     # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d, stream
     "odgs_blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d,
+    # d_tfin, d_accc, d_accd, dg, stream
+    "odgs_blend_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8,
 }
 
 
@@ -81,19 +89,35 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, lib_path)          # atomic: a reader never sees a torn .so
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        # one nvcc per source, all running at once, then one link
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
+                                           else []), "-c", "-o", obj,
+                   str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, _, proc in jobs]
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{log}")
+            if verbose and log:
+                print(log)
+        tmp = os.path.join(work, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, lib_path)      # atomic: a reader never sees a torn .so
     BUILD_SECONDS = time.perf_counter() - t0
     return lib_path
 

@@ -1,9 +1,10 @@
-"""3D Gaussian tile rasterizer, forward (PyTorch + the CUDA blend kernel).
+"""3D Gaussian tile rasterizer (PyTorch + the CUDA blend kernels).
 
-Counterpart of open_diffusiongs_tpu/ops/rasterize.py, forward only, with the
-same capacity semantics (docs/CAPACITY.md): D = max_tiles_per_gaussian tile
-slots per Gaussian, K = max_per_tile candidates per tile (the farthest are
-dropped), the centred rect clip, and the three exact counters.
+Counterpart of open_diffusiongs_tpu/ops/rasterize.py with the same capacity
+semantics (docs/CAPACITY.md): D = max_tiles_per_gaussian tile slots per
+Gaussian, K = max_per_tile candidates per tile (the farthest are dropped),
+the centred rect clip, and the three exact counters.  `render` is
+differentiable with respect to the raw Gaussians.
 
 Per view:
   preprocess_view      per-Gaussian projection, conic, radius, tile rect,
@@ -16,6 +17,18 @@ Per view:
                        reading rows of the packed [N + 1, 10] table
   blend_tiles_g        + bg·T_final, tiles assembled into the image
 
+Gradients: activation, cov3D, EWA, SH and `pack_rows` are plain autograd;
+the blend is `BlendTiles` (ops/blend_kernel.py: forward kernel, backward
+kernel).  Its per-candidate gradient rows dg [T, K, 10] go back onto the
+packed table without atomics and without a second sort (JAX scatters them
+with `.at[].add`, rasterize.py:473-502; torch's CUDA `index_add_` would use
+atomics).  The binning sort already places every (slot s, Gaussian n) key
+at a sorted position p; its entry is tile t, candidate k = p - starts[t],
+kept iff t < T and k < K.  `_bin_tiles_single` inverts the sort's
+permutation (a permutation scatter, no accumulation) into gidx [D, N] =
+t*K + k or the sentinel T*K, and the backward gathers dg through gidx and
+sums over the D = 16 slots — the same result every run.
+
 The JAX package's split/payload binning, `early_exit` while-loop, remat and
 optimization barriers are TPU devices with no counterpart here; their
 config fields are accepted and ignored.  Single-stream binning is exact
@@ -25,13 +38,13 @@ test_split_binning_exact_vs_single_stream).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import camera as cam_lib
 from . import gs_math
-from .blend_kernel import TILE, blend_tiles
+from .blend_kernel import TILE, BlendTiles, blend_tiles
 from .gaussians import ActivatedGaussians, Gaussians
 
 NEAR_CULL_Z = 0.2            # auxiliary.h in_frustum
@@ -86,6 +99,9 @@ class TileBins(NamedTuple):
     overflow_tiles: torch.Tensor      # [] rect tiles beyond D
     overflow_gaussians: torch.Tensor  # [] per-tile entries beyond K
     entries: torch.Tensor             # [] total binned entries
+    gidx: Optional[torch.Tensor] = None  # [D, N] int32 flat candidate
+    #                         index t*K + k of each slot, or T*K (unbinned);
+    #                         built only for the backward (grad_map=True)
 
 
 def preprocess_view(act: ActivatedGaussians, cov3d: torch.Tensor,
@@ -179,12 +195,15 @@ def _depth_ranks(depth: torch.Tensor) -> torch.Tensor:
 
 
 def _bin_tiles_single(pre: PreprocessedView, tiles_x: int, tiles_y: int,
-                      cfg: RasterizeConfig) -> TileBins:
+                      cfg: RasterizeConfig, grad_map: bool = False
+                      ) -> TileBins:
     """Single-stream N·D-key binning (rasterizer_impl.cu duplicateWithKeys
     + radix sort + identifyTileRanges).  Slot s of a Gaussian covers tile
     (x0 + s % rw, y0 + s // rw) while s < area (row-major walk of its rect);
     other slots carry the sentinel tile T.  One int64 key per slot,
-    (tile << rank_bits) | depth rank, sorts into (tile, depth) order."""
+    (tile << rank_bits) | depth rank, sorts into (tile, depth) order.
+    `grad_map` also returns gidx, the backward's candidate index of every
+    slot (module docstring)."""
     n = pre.depth.shape[0]
     dev = pre.depth.device
     d_slots, k_cap = cfg.max_tiles_per_gaussian, cfg.max_per_tile
@@ -218,12 +237,21 @@ def _bin_tiles_single(pre: PreprocessedView, tiles_x: int, tiles_y: int,
     idx = padded[starts[:, None] + k_ar[None, :]]
     counts = torch.clamp(counts_raw, max=k_cap)
     idx = torch.where(k_ar[None, :] < counts[:, None], idx, n)
+    gidx = None
+    if grad_map:
+        pos = torch.empty_like(perm)               # sorted position of key f
+        pos[perm] = torch.arange(perm.numel(), device=dev)
+        tile_f = tile.reshape(-1)
+        kk = pos - starts[torch.clamp(tile_f, max=num_tiles - 1)]
+        keep = (tile_f < num_tiles) & (kk < k_cap)
+        gidx = torch.where(keep, tile_f * k_cap + kk, num_tiles * k_cap)
+        gidx = gidx.reshape(d_slots, n).to(torch.int32)
     return TileBins(idx=idx.to(torch.int32).contiguous(),
                     counts=counts.to(torch.int32),
                     overflow_tiles=overflow_tiles,
                     overflow_gaussians=torch.clamp(counts_raw - k_cap,
                                                    min=0).sum(),
-                    entries=counts_raw.sum())
+                    entries=counts_raw.sum(), gidx=gidx)
 
 
 def pack_rows(pre: PreprocessedView) -> torch.Tensor:
@@ -265,9 +293,16 @@ def rasterize_single_view(act: ActivatedGaussians, cov3d: torch.Tensor,
         pre, clipped = _clip_rect_centered(pre, cfg.max_tiles_per_gaussian)
     elif cfg.rect_clip != "first":
         raise ValueError(f"unknown rect_clip {cfg.rect_clip!r}")
-    bins = _bin_tiles_single(pre, tiles_x, tiles_y, cfg)
-    t_fin, acc_c, acc_d = blend_tiles(pack_rows(pre), bins.idx, bins.counts,
-                                      tiles_x)
+    packed = pack_rows(pre)
+    differentiable = torch.is_grad_enabled() and packed.requires_grad
+    bins = _bin_tiles_single(pre, tiles_x, tiles_y, cfg,
+                             grad_map=differentiable)
+    if differentiable:
+        t_fin, acc_c, acc_d = BlendTiles.apply(packed, bins.idx, bins.counts,
+                                               bins.gidx, tiles_x)
+    else:
+        t_fin, acc_c, acc_d = blend_tiles(packed, bins.idx, bins.counts,
+                                          tiles_x)
     color, alpha, depth = blend_tiles_g(t_fin, acc_c, acc_d, tiles_x,
                                         tiles_y, bg)
     return (color[:h, :w], alpha[:h, :w], depth[:h, :w],
@@ -286,7 +321,8 @@ def render(gaussians: Gaussians, c2w: torch.Tensor, fxfycxcy: torch.Tensor,
       alpha / depth [B, V, 1, h, w],
       overflow_tiles / overflow_gaussians / binned_entries: [] int64
       ("no silent caps": nonzero means a capacity clipped real work).
-    Views run one after another (one blend launch each)."""
+    Views run one after another (one blend launch each).  Differentiable
+    with respect to the Gaussians when they require grad."""
     dev = gaussians.xyz.device
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     colors, alphas, depths = [], [], []

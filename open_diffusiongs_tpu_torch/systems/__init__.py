@@ -1,1 +1,1 @@
-"""Systems: the object system and its config builder."""
+"""Systems: the object system, its losses and its config builder."""

@@ -1,6 +1,7 @@
-"""Build the port's systems from the repo's YAML config surface.
+"""Build the port's systems and optimizer configs from the repo's YAML
+config surface.
 
-Counterpart of open_diffusiongs_tpu/systems/builder.py:49-122 for the
+Counterpart of open_diffusiongs_tpu/systems/builder.py:49-151 for the
 object system.  The same configs/*.yaml drive both packages (ROADMAP
 rule 4): keys that steer TPU-only machinery are accepted, ignored, and
 named in one log line.
@@ -15,6 +16,7 @@ import torch
 import yaml
 
 from ..ops.rasterize import TPU_ONLY_FIELDS, RasterizeConfig
+from ..parallel.train_step import OptimizerConfig
 
 log = logging.getLogger(__name__)
 
@@ -35,6 +37,8 @@ _SHAPE_MODEL_MAP = {
     "range_setting_far": "range_setting_far",
     "gs_raw_offset_scaling": "gs_raw_offset_scaling",
     "gs_raw_offset_opacity": "gs_raw_offset_opacity",
+    # block checkpointing (the JAX package's remat)
+    "use_checkpoint": "checkpoint",
     # reference knobs with a fixed answer (unused by the shipped model)
     "prior_distribution": None, "use_gssplat": None,
     "grad_checkpoint_every": None, "use_downsample": None,
@@ -42,8 +46,9 @@ _SHAPE_MODEL_MAP = {
     "pretrained_model_name_or_path": None,
 }
 # shape_model keys that steer TPU-only machinery (ignored, logged)
-TPU_ONLY_SHAPE_KEYS = ("use_flash", "use_checkpoint", "remat_save_attn",
-                       "remat_save_mlp")
+TPU_ONLY_SHAPE_KEYS = ("use_flash", "remat_save_attn", "remat_save_mlp")
+LOSS_LAMBDAS = ("lambda_diffusion", "lambda_lpips", "lambda_ssim",
+                "lambda_pointsdist", "lambda_xyz")
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -96,6 +101,7 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
 
     cfg = dict(system_cfg)
     ignored: list = []
+    loss = dict(cfg.get("loss", {}))
     noise = dict(cfg.get("noise_scheduler", {}))
     kwargs: Dict[str, Any] = dict(
         num_inference_steps=cfg.get("num_inference_steps", 30),
@@ -107,9 +113,46 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
         kwargs["raster"] = raster
     elif "raster" in cfg:
         kwargs["raster"] = raster_config(cfg["raster"], ignored=ignored)
+    for lam in LOSS_LAMBDAS:
+        if lam in loss:
+            v = loss[lam]
+            kwargs[lam] = tuple(v) if isinstance(v, list) else v
+    for k in ("use_lpips", "lpips_weights"):
+        if k in cfg:
+            kwargs[k] = cfg[k]
     if "bg_color" in cfg:
         kwargs["bg_color"] = tuple(cfg["bg_color"])
     if ignored:
         log.info("open_diffusiongs_tpu_torch: ignoring TPU-only config keys: "
                  "%s", ", ".join(ignored))
     return find(system_type)(ObjectSystemConfig(**kwargs), device=device)
+
+
+def build_optimizer_config(system_cfg: Dict[str, Any],
+                           trainer_cfg: Dict[str, Any]) -> OptimizerConfig:
+    """OptimizerConfig from the `system.optimizer` / `system.scheduler` and
+    `trainer` blocks (JAX builder.py:125-151, field for field)."""
+    opt = dict(system_cfg.get("optimizer", {}))
+    args = dict(opt.get("args", {}))
+    sched = dict(system_cfg.get("scheduler", {}))
+    sargs = dict(sched.get("args", {}))
+    # composite specs (SequentialLR / ChainedScheduler) pass through whole
+    # for parse_schedule's recursion
+    if sched.get("schedulers"):
+        scheduler = sched
+    else:
+        scheduler = sched.get("name", "constant") or "constant"
+    return OptimizerConfig(
+        name=opt.get("name", "AdamW"),
+        lr=float(args.get("lr", 1e-5)),
+        betas=tuple(args.get("betas", (0.9, 0.99))),
+        eps=float(args.get("eps", 1e-8)),
+        weight_decay=float(args.get("weight_decay", 0.01)),
+        grad_clip=float(trainer_cfg.get("gradient_clip_val", 0.0) or 0.0),
+        scheduler=scheduler,
+        t_max=int(sargs.get("T_max", 500_000)),
+        eta_min=float(sargs.get("eta_min", 0.0)),
+        accumulate_grad_batches=int(
+            trainer_cfg.get("accumulate_grad_batches", 1)),
+        params=opt.get("params") or None,
+    )

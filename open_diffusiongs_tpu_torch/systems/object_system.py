@@ -1,11 +1,13 @@
-"""Object-level system: model + schedules + the sampling loop (PyTorch).
+"""Object-level system: model + schedules, the training loss and the
+sampling loop (PyTorch).
 
 Counterpart of open_diffusiongs_tpu/systems/object_system.py
-(ObjectSystemConfig, __init__, init_params, make_model_fn and sample,
-:42-112, :213-264).  The denoiser is an nn.Module owned by the system and
-placed on an explicit `device`; weights come from `init_params(generator)`
-or from `self.model.load_state_dict` (reference names, utils/convert.py).
-Training (loss, LPIPS, optimizer) is not ported yet.
+(ObjectSystemConfig, __init__, init_params, _gt_xyz, train_loss,
+make_model_fn and sample, :42-112, :143-264).  The denoiser is an
+nn.Module owned by the system and placed on an explicit `device`; weights
+come from `init_params(generator)` or from `self.model.load_state_dict`
+(reference names, utils/convert.py).  The optimizer and the step around
+`train_loss` are parallel/train_step.py.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .. import register
-from ..diffusion import create_schedule, p_sample_loop
+from ..diffusion import create_schedule, p_sample_loop, q_sample
 from ..models.denoiser import DGSDenoiser
 from ..ops import rasterize
 from ..ops.rays import rays_chw
+from ..utils.schedules import C, C_max
+from . import losses as losses_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +31,18 @@ class ObjectSystemConfig:
     num_inference_steps: int = 30
     num_train_timesteps: int = 1000
     noise_schedule: str = "squaredcos_cap_v2"
+    # loss lambdas: float or [start_step, v0, v1, end_step]
+    # (configs/diffusionGS_rel.yaml:50-56)
+    lambda_diffusion: Any = (150, 0.0, 1.0, 151)
+    lambda_lpips: Any = (150, 0.0, 0.5, 151)
+    lambda_ssim: Any = 0.0
+    lambda_pointsdist: Any = (150, 1.0, 0.0, 151)
+    lambda_xyz: Any = (150, 0.0, 0.025, 151)
+    use_lpips: bool = True
+    lpips_weights: Optional[str] = None
+    # a random-init VGG is harmful as a loss: LPIPS without converted
+    # pretrained weights needs this explicit opt-in
+    allow_random_lpips: bool = False
     bg_color: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     raster: rasterize.RasterizeConfig = rasterize.RasterizeConfig()
     # keyword arguments of DGSDenoiser
@@ -35,7 +51,8 @@ class ObjectSystemConfig:
 
 @register("diffusion-gs-system")
 class ObjectSystem:
-    """Owns the denoiser and the schedules; `sample` is the 30-step
+    """Owns the denoiser and the schedules; `train_loss` is the reference
+    forward (diffusion_gs_system.py:71-124), `sample` the 30-step
     image -> Gaussians generation (pipline_obj.py:297-306)."""
 
     def __init__(self, cfg: ObjectSystemConfig,
@@ -46,9 +63,20 @@ class ObjectSystem:
         with torch.device("meta"):
             model = DGSDenoiser(**dict(cfg.shape_model))
         self.model = model.to_empty(device=self.device).eval()
+        self.sched_train = create_schedule(
+            None, cfg.noise_schedule, cfg.num_train_timesteps)
         self.sched_infer = create_schedule(
             str(cfg.num_inference_steps), cfg.noise_schedule,
             cfg.num_train_timesteps)
+        # The reference always uses pretrained lpips-VGG.  Sampling never
+        # touches LPIPS, so init only records the gap; train_loss refuses
+        # to run if the config weights LPIPS without its weights.
+        self._lpips_missing = (cfg.use_lpips and cfg.lpips_weights is None
+                               and not cfg.allow_random_lpips)
+        self.lpips_params = (
+            losses_lib.lpips_init_params(cfg.lpips_weights,
+                                         device=self.device)
+            if cfg.use_lpips and not self._lpips_missing else None)
 
     def init_params(self, generator: torch.Generator) -> DGSDenoiser:
         """Random init from `generator` (its device must be the system's):
@@ -56,6 +84,85 @@ class ObjectSystem:
         free-Gaussian embedding.  Returns the model."""
         self.model.init_weights(generator)
         return self.model
+
+    def _gt_xyz(self, batch, ray_o: torch.Tensor, ray_d: torch.Tensor
+                ) -> Optional[torch.Tensor]:
+        """Ground-truth pixel points from the input views' depth."""
+        return ray_o + ray_d * batch["depths_input"].float()
+
+    def train_loss(self, batch: Dict[str, torch.Tensor], step,
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of one batch (keys of the reference data
+        contract, data/base.py:158-243: rgbs_input [b, v, 3, h, w],
+        c2ws_input, fxfycxcys_input, depths_input, masks_input, and rgbs /
+        c2ws / fxfycxcys for the supervision views).
+
+        View 0 stays the clean condition, views 1: get q_sample noise at a
+        timestep t ~ U[0, T) per batch element; the denoiser (no xyz
+        clamp, as in the reference's training path) gives Gaussians that
+        render every supervision view; the loss sums the terms weighted by
+        C(lambda, step).  `noise` [b, v, 3, h, w] and `t` [b] replace the
+        draws from `generator` when given (parity tests inject the JAX
+        package's draws).  Returns (loss, metrics) with the unweighted
+        terms, psnr and the render's overflow counters."""
+        cfg = self.cfg
+        if self._lpips_missing and C_max(cfg.lambda_lpips) > 0:
+            raise RuntimeError(
+                "LPIPS is weighted in this config (lambda_lpips="
+                f"{cfg.lambda_lpips}) but no pretrained VGG-LPIPS weights "
+                "are available. Provide system.lpips_weights (NPZ from "
+                "tools/convert_lpips_weights.py), or explicitly waive the "
+                "term with system.use_lpips=false / system.lambda_lpips=0.0 "
+                "/ system.allow_random_lpips=true.")
+        images = batch["rgbs_input"].float()
+        b, v, _, h, w = images.shape
+        dev = images.device
+        ray_o, ray_d = rays_chw(batch["c2ws_input"],
+                                batch["fxfycxcys_input"], h, w)
+        if noise is None:
+            noise = torch.randn(images.shape, generator=generator,
+                                dtype=torch.float32, device=dev)
+        if t is None:
+            t = torch.randint(0, cfg.num_train_timesteps, (b,),
+                              generator=generator, device=dev)
+        noisy = q_sample(self.sched_train, images[:, 1:], t, noise[:, 1:])
+        x = torch.cat([images[:, :1], noisy], dim=1)
+
+        gaussians, img_xyz = self.model(x, ray_o, ray_d, t)
+        out = rasterize.render(gaussians, batch["c2ws"], batch["fxfycxcys"],
+                               h, w, bg_color=cfg.bg_color, cfg=cfg.raster)
+        lo = losses_lib.compute_losses(
+            out["render"], batch["rgbs"].float(), ray_o,
+            img_aligned_xyz=img_xyz,
+            gt_img_aligned_xyz=self._gt_xyz(batch, ray_o, ray_d),
+            masks=batch.get("masks_input"),
+            lpips_params=self.lpips_params, use_lpips=cfg.use_lpips)
+
+        parts = {
+            "loss_diffusion": (lo.l2.mean(), cfg.lambda_diffusion),
+            "loss_lpips": (lo.lpips, cfg.lambda_lpips),
+            "loss_ssim": (lo.ssim.mean(), cfg.lambda_ssim),
+            "loss_pointsdist": (lo.pointsdist.mean(), cfg.lambda_pointsdist),
+            "loss_xyz": (lo.xyz, cfg.lambda_xyz),
+        }
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        metrics = {
+            "psnr": lo.psnr.mean().detach(),
+            "overflow_gaussians": out["overflow_gaussians"],
+            "overflow_tiles": out["overflow_tiles"],
+            # fraction of per-tile candidate entries dropped by the K cap
+            # (docs/CAPACITY.md)
+            "overflow_frac": out["overflow_gaussians"].float()
+            / torch.clamp(out["binned_entries"], min=1).float(),
+        }
+        for name, (value, lam) in parts.items():
+            metrics[name] = value.detach()
+            total = total + value * C(lam, step)
+        metrics["loss"] = total.detach()
+        return total, metrics
 
     def make_model_fn(self, c2w: torch.Tensor, fxfycxcy: torch.Tensor,
                       h: int, w: int, skip_cond_render: int = 0):

@@ -1,1 +1,2 @@
-"""PLY export, camera orbits and the flax -> torch weight bridge."""
+"""PLY export, camera orbits, scalar schedules and the flax -> torch weight
+bridge."""
