@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's object-sampling path and object training step
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's object-sampling path, object training step and
+the DiT's general attention route once on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -42,7 +42,33 @@ Phases, one summary line each (every failure raises and exits non-zero):
                config, a b = 4 batch of 4 input + 4 supervision views at
                256^2 built in memory, from step 151 (every loss term
                weighted): 1 warm-up step and 3 timed steps; kernel
-               launches counted and held against the derived counts.
+               launches counted and held against the derived counts;
+  9. general attention route
+               a. the general-route kernel (flash_full_mha) against its
+                  plain twin on bf16 q/k/v slices of a fused qkv at
+                  [1, 4098, 16, 64], [1, 4098, 16, 48], [2, 700, 3, 40] and
+                  [1, 1100, 5, 20] (rel-max 8e-3), timed at L = 4098 and
+                  16386 (the plain twin at 4098 only: its f32 scores at
+                  16386 would be ~17 GB);
+               b. the scalar-max packed forward against its twin (64-row
+                  blocks) at b = 1, L = 4098 on a fused qkv and on a ragged
+                  Lp = 4608 with 1e4 garbage (rel-max 8e-3), timed;
+               c. sampling as phase 5 with shape_model width 768 and
+                  dim_heads 48 (16 heads of 48, which fail the packed lane
+                  test; no shipped config uses this layout): exactly
+                  24 x 30 general-route launches and none of the packed
+                  forward, finite renders and Gaussians;
+               d. 24 DiTBlock(1024, 16, qk_norm=True) at L = 4098, b = 1,
+                  bf16, random weights from seed 0: one warm-up and one
+                  timed forward, 24 general-route launches, finite output;
+               e. the bench variants through tools/bench_attn.py: --check
+                  of all four (pv_f32 x score_bf16; rel-max 8e-3 with f32
+                  scores, max abs 2e-2 with bf16 scores) and the scalar-max
+                  forward, and one timed sweep at L = 4098;
+               f. the packed kernels at dh = 16: forward, forward with lse
+                  and backward at b = 2, L = 4098, 16 heads of 16 on a fused
+                  qkv (per-element scales, phase 6's bounds), and a ragged
+                  Lp = 4608.
 Then the kernels' JSON line, the card line, and the result line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.  Without a CUDA
 device it exits non-zero and prints no result.
@@ -131,7 +157,8 @@ def phase_build() -> float:
     return secs
 
 
-def attention_case(torch, dev, gen, b, l_real, lp, h, dh, fused: bool):
+def attention_case(torch, dev, gen, b, l_real, lp, h, dh, fused: bool,
+                   scalar_max: bool = False):
     """Kernel vs plain version on bf16 inputs; rows >= l_real hold 1e4."""
     from open_diffusiongs_tpu_torch.ops import attention
     hd = h * dh
@@ -143,6 +170,8 @@ def attention_case(torch, dev, gen, b, l_real, lp, h, dh, fused: bool):
     else:
         q, k, v = (x.contiguous() for x in qkv.chunk(3, dim=-1))
     kw = dict(num_heads=h, l_real=l_real)
+    if scalar_max:
+        kw["scalar_max"] = True
     out = attention.flash_mha_packed(q, k, v, **kw)
     ref = attention.flash_mha_packed_ref(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -249,18 +278,19 @@ def rel_max(out, ref) -> float:
                  / ref.float().abs().max())
 
 
-def attention_train_case(torch, dev, gen, l_real, lp):
+def attention_train_case(torch, dev, gen, l_real, lp, h=16, dh=64,
+                         b=TRAIN_BATCH, plain_fwd=False):
     """Stats forward + backward, kernel vs plain, at the train path's batch
     on bf16 column slices of a fused qkv; rows >= l_real of qkv and dO hold
     1e4.  Each batch element has its own scale of qkv and of dO, so a
     kernel that read another element's rows, lse or delta would be off by
-    far more than the bounds; errors are relative per element."""
+    far more than the bounds; errors are relative per element.
+    `plain_fwd` also holds the stats-free forward."""
     from open_diffusiongs_tpu_torch.ops import attention
-    h, dh, b = 16, 64, TRAIN_BATCH
     qkv = torch.randn((b, lp, 3 * h * dh), generator=gen, device=dev)
     do = torch.randn((b, lp, h * dh), generator=gen, device=dev)
-    qkv *= torch.tensor(QKV_SCALES, device=dev)[:, None, None]
-    do *= torch.tensor(DO_SCALES, device=dev)[:, None, None]
+    qkv *= torch.tensor(QKV_SCALES[:b], device=dev)[:, None, None]
+    do *= torch.tensor(DO_SCALES[:b], device=dev)[:, None, None]
     qkv, do = qkv.to(torch.bfloat16), do.to(torch.bfloat16)
     qkv[:, l_real:] = 1e4
     do[:, l_real:] = 1e4
@@ -279,6 +309,10 @@ def attention_train_case(torch, dev, gen, l_real, lp):
     res = {"o_rel_max": rel(o[:, :l_real], o_r[:, :l_real]),
            "lse_max_abs": float((lse - lse_r)[:, :l_real].abs().max()),
            "lse_pad_zero": bool((lse[:, l_real:] == 0).all())}
+    if plain_fwd:
+        res["o_plain_rel_max"] = rel(
+            attention.flash_mha_packed(q, k, v, **kw)[:, :l_real],
+            o_r[:, :l_real])
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
         if not torch.isfinite(g).all():
             raise AssertionError(f"attention backward: non-finite {name}")
@@ -582,6 +616,264 @@ def phase_main(torch, dev, system) -> dict:
     return res
 
 
+def reset_launches(*modules) -> None:
+    """Every launch counter of the given kernel modules to 0."""
+    for m in modules:
+        for name in dir(m):
+            if name.startswith("LAUNCHES"):
+                setattr(m, name, 0)
+
+
+def launch_counts(m) -> dict:
+    return {n: getattr(m, n) for n in dir(m) if n.startswith("LAUNCHES")}
+
+
+def fused_heads(torch, dev, gen, b, l, h, d):
+    """q, k, v [b, l, h, d] bf16: column slices of one fused qkv, viewed per
+    head as the DiT's general route hands them to the kernel."""
+    qkv = torch.randn((b, l, 3 * h * d), generator=gen, device=dev
+                      ).to(torch.bfloat16)
+    return tuple(x.reshape(b, l, h, d) for x in qkv.chunk(3, dim=-1))
+
+
+def phase_general_kernel(torch, dev) -> dict:
+    """9a: flash_full_mha vs flash_full_mha_ref at the route's shapes."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(4)
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    cases = {}
+    for b, n, h, d in ((1, l, 16, 64), (1, l, 16, 48), (2, 700, 3, 40),
+                       (1, 1100, 5, 20)):
+        q, k, v = fused_heads(torch, dev, gen, b, n, h, d)
+        out = attention.flash_full_mha(q, k, v)
+        ref = attention.flash_full_mha_ref(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_full_mha {[b, n, h, d]}: non-finite")
+        cases[f"{b}x{n}x{h}x{d}"] = {
+            "rel_max_err": rel_max(out, ref),
+            "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        del out, ref
+    q, k, v = fused_heads(torch, dev, gen, 1, l, 16, 64)
+    ms = cuda_ms(lambda: attention.flash_full_mha(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: attention.flash_full_mha_ref(q, k, v), 3)
+    packed_ms = cuda_ms(lambda: attention.flash_mha_packed(
+        *(x.reshape(1, l, -1) for x in (q, k, v)), num_heads=16, l_real=l),
+        20)
+    l512 = 2 + N_VIEWS * (512 // 8) ** 2                    # 16386
+    q5, k5, v5 = fused_heads(torch, dev, gen, 1, l512, 16, 64)
+    ms_512 = cuda_ms(lambda: attention.flash_full_mha(q5, k5, v5), 10)
+    del q5, k5, v5
+    res = {"cases": cases, "ms": ms, "plain_ms": plain_ms,
+           "packed_kernel_ms_same_inputs": packed_ms, "ms_L16386": ms_512,
+           "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           "timed": f"b=1 L={l} (and {l512}) h=16 d=64 bf16, fused qkv; "
+                    f"plain twin at L={l} only"}
+    print(f"[9a general attention kernel] {json.dumps(res)}", flush=True)
+    for name, c in cases.items():
+        if not c["rel_max_err"] <= ATTN_REL_BOUND:
+            raise AssertionError(f"flash_full_mha {name}: rel-max error "
+                                 f"{c['rel_max_err']:.3g} > {ATTN_REL_BOUND}")
+    return res
+
+
+def phase_smax(torch, dev) -> dict:
+    """9b: the scalar-max packed forward vs its twin (64-row blocks)."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    err, rel, (q, k, v), kw = attention_case(torch, dev, gen, 1, l, l, 16,
+                                             64, fused=True, scalar_max=True)
+    err_r, rel_r, _, _ = attention_case(torch, dev, gen, 1, l, 4608, 16, 64,
+                                        fused=True, scalar_max=True)
+    ms = cuda_ms(lambda: attention.flash_mha_packed(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: attention.flash_mha_packed_ref(q, k, v, **kw),
+                       3)
+    row_ms = cuda_ms(lambda: attention.flash_mha_packed(
+        q, k, v, num_heads=16, l_real=l), 20)
+    res = {"max_abs_err": max(err, err_r), "rel_max_err": rel,
+           "ragged_rel_max_err": rel_r, "ms": ms, "plain_ms": plain_ms,
+           "row_max_kernel_ms": row_ms,
+           "shape": f"b=1 L={l} h=16 dh=64 bf16, fused qkv"}
+    print(f"[9b scalar-max forward] {json.dumps(res)}", flush=True)
+    for name, r in (("L=4098", rel), ("ragged Lp=4608", rel_r)):
+        if not r <= ATTN_REL_BOUND:
+            raise AssertionError(f"scalar-max kernel {name}: rel-max error "
+                                 f"{r:.3g} > {ATTN_REL_BOUND}")
+    return res
+
+
+def phase_general_sampling(torch, dev) -> dict:
+    """9c: the sampling entry point with 16 heads of 48 (general route)."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    from open_diffusiongs_tpu_torch.systems.builder import (build_system,
+                                                            load_config)
+    cfg = load_config(CONFIG)
+    shape = dict(cfg["system"]["shape_model"], width=768, dim_heads=48)
+    system = build_system(cfg["system_type"],
+                          dict(cfg["system"], shape_model=shape), device=dev)
+    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    blocks = system.model.transformer
+    if any(blk.attn.packed for blk in blocks):
+        raise AssertionError("16 heads of 48 must take the general route")
+    pipe = DiffusionGSPipeline(system)
+    kw = dict(resolution=RES, n_views=N_VIEWS, matting="border")
+    pipe.batch([IMAGE], **kw)                       # warm-up run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(attention, blend_kernel)
+    t0 = time.perf_counter()
+    out = pipe.batch([IMAGE], **kw)[0]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(attention)
+    want = dict({n: 0 for n in launches},
+                LAUNCHES_FULL=len(blocks) * STEPS)
+    g = out.gaussians
+    res = {"seconds_per_asset": secs,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": launches, "expected_launches": want,
+           "blend_launches": blend_kernel.LAUNCHES,
+           "gaussians_after_filters": int(g.xyz.shape[0]),
+           "renders_shape": list(out.renders.shape),
+           "config": "configs/diffusionGS_rel.yaml with width 768, "
+                     "dim_heads 48 (16 heads, 24 layers, L = 4098); no "
+                     "shipped config uses this layout",
+           "card": card_line()}
+    print(f"[9c general-route sampling] {json.dumps(res)}", flush=True)
+    if launches != want:
+        raise AssertionError(f"attention launches {launches} != {want}")
+    if list(out.renders.shape) != [N_VIEWS, 3, RES, RES]:
+        raise AssertionError(f"renders shape {out.renders.shape}")
+    if not np.isfinite(out.renders).all():
+        raise AssertionError("non-finite renders")
+    if not all(np.isfinite(x).all() for x in g):
+        raise AssertionError("non-finite Gaussians")
+    return res
+
+
+def phase_qk_norm_stack(torch, dev) -> dict:
+    """9d: 24 qk_norm DiT blocks at the flagship width (the reference's
+    DiTBlock_QK_Norm), forward under no_grad."""
+    from open_diffusiongs_tpu_torch.models.transformer import DiTBlock
+    from open_diffusiongs_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    width, heads, layers = 1024, 16, 24
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    blocks = torch.nn.ModuleList(
+        DiTBlock(width, heads, dtype=torch.bfloat16, qk_norm=True)
+        for _ in range(layers)).to(dev)
+    with torch.no_grad():
+        for name, p in blocks.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn((1, l, width), generator=gen, device=dev)
+    c = torch.randn((1, width), generator=gen, device=dev)
+
+    def forward():
+        h = x
+        for blk in blocks:
+            h = blk(h, c)
+        return h
+
+    with torch.no_grad():
+        forward()                                   # warm-up
+        torch.cuda.synchronize()
+        reset_launches(attention)
+        t0 = time.perf_counter()
+        y = forward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = launch_counts(attention)
+    want = dict({n: 0 for n in launches}, LAUNCHES_FULL=layers)
+    res = {"seconds": secs, "launches": launches, "expected_launches": want,
+           "finite": bool(torch.isfinite(y).all()),
+           "out_abs_max": float(y.abs().max()),
+           "shape": f"{layers} x DiTBlock({width}, {heads}, qk_norm=True), "
+                    f"b=1 L={l} bf16",
+           "card": card_line()}
+    print(f"[9d qk-norm stack] {json.dumps(res)}", flush=True)
+    if launches != want:
+        raise AssertionError(f"attention launches {launches} != {want}")
+    if not res["finite"]:
+        raise AssertionError("qk-norm stack: non-finite output")
+    return res
+
+
+def phase_bench_variants(torch, dev) -> dict:
+    """9e: the bench entry point: --check of every variant, then one timed
+    sweep at L = 4098 whose launches are counted."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    from open_diffusiongs_tpu_torch.tools import bench_attn
+    check = bench_attn.check(dev)
+    torch.cuda.synchronize()
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    iters = 10
+    reset_launches(attention)
+    sweep = bench_attn.sweep(dev, l, 16, iters)
+    launches = launch_counts(attention)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    qs, k, v, _ = bench_attn._qkv(gen, dev, 16, l, l)
+    plain_ms = cuda_ms(lambda: attention.mha_full_ref(qs, k, v, l_real=l), 3)
+    res = {"check": check, "sweep": sweep, "launches": launches,
+           "plain_ms": plain_ms,
+           "shape": f"h=16 L={l} d=64 bf16 (check: L=700 padded to 1024)"}
+    print(f"[9e bench variants] {json.dumps(res)}", flush=True)
+    for name, (pv_f32, score_bf16) in bench_attn.VARIANTS.items():
+        r = check[name]
+        if score_bf16 and not r["max_abs_err"] <= bench_attn.CHECK_BAR:
+            raise AssertionError(f"{name}: max abs error "
+                                 f"{r['max_abs_err']:.3g} > "
+                                 f"{bench_attn.CHECK_BAR}")
+        if not score_bf16 and not r["rel_max_err"] <= ATTN_REL_BOUND:
+            raise AssertionError(f"{name}: rel-max error "
+                                 f"{r['rel_max_err']:.3g} > {ATTN_REL_BOUND}")
+    if not check[bench_attn.SMAX]["rel_max_err"] <= ATTN_REL_BOUND:
+        raise AssertionError(f"scalar-max check: {check[bench_attn.SMAX]}")
+    each = iters + 2                                # timed + warm-up
+    if (launches["LAUNCHES_MHA_FULL"] != len(bench_attn.VARIANTS) * each
+            or launches["LAUNCHES_SMAX"] != each):
+        raise AssertionError(f"bench launches {launches}")
+    return res
+
+
+def phase_dh16(torch, dev) -> dict:
+    """9f: the packed kernels at dh = 16 (the packed layout of 64 heads at
+    width 1024), forward, forward with lse and backward."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    kw = dict(h=16, dh=16, b=2, plain_fwd=True)
+    full, _ = attention_train_case(torch, dev, gen, l, l, **kw)
+    ragged, _ = attention_train_case(torch, dev, gen, l, 4608, **kw)
+    torch.cuda.empty_cache()
+    res = {"full": full, "ragged_lp4608": ragged,
+           "shape": f"b=2 L={l} h=16 dh=16 bf16, fused qkv"}
+    print(f"[9f packed dh=16] {json.dumps(res)}", flush=True)
+    for case, r in (("L=4098", full), ("ragged Lp=4608", ragged)):
+        checks = [("o rel-max", r["o_rel_max"], ATTN_REL_BOUND),
+                  ("o (no stats) rel-max", r["o_plain_rel_max"],
+                   ATTN_REL_BOUND),
+                  ("lse max abs", r["lse_max_abs"], LSE_ABS_BOUND)]
+        checks += [(f"{n} rel-max", r[f"{n}_rel_max"], GRAD_REL_BOUND)
+                   for n in ("dq", "dk", "dv")]
+        for name, val, bound in checks:
+            if not val <= bound:
+                raise AssertionError(f"dh=16 {case}: {name} {val:.3g} > "
+                                     f"{bound}")
+        for n in ("lse", "dq", "dk", "dv"):
+            if not r[f"{n}_pad_zero"]:
+                raise AssertionError(f"dh=16 {case}: {n} pad rows are not "
+                                     f"exactly 0")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -605,6 +897,15 @@ def main() -> int:
     del system, view
     torch.cuda.empty_cache()
     train = phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    general = phase_general_kernel(torch, dev)
+    smax = phase_smax(torch, dev)
+    general_sampling = phase_general_sampling(torch, dev)
+    torch.cuda.empty_cache()
+    phase_qk_norm_stack(torch, dev)
+    torch.cuda.empty_cache()
+    bench = phase_bench_variants(torch, dev)
+    phase_dh16(torch, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "flax", "optax", "orbax")
@@ -646,6 +947,26 @@ def main() -> int:
          "launches": train["launches"]["blend_bwd"],
          "max_abs_err": blend_bwd["max_abs_err"], "ms": blend_bwd["ms"],
          "plain_ms": blend_bwd["plain_ms"]},
+        {"name": "flash_full_mha", "route": "cuda",
+         "source": src + "flash_full_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/ops/attention.py:44",
+         "launches": general_sampling["launches"]["LAUNCHES_FULL"],
+         "max_abs_err": general["max_abs_err"], "ms": general["ms"],
+         "plain_ms": general["plain_ms"]},
+        {"name": "flash_mha_packed(scalar_max=True)", "route": "cuda",
+         "source": src + "flash_attn_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/ops/attention.py:146",
+         "launches": bench["launches"]["LAUNCHES_SMAX"],
+         "max_abs_err": smax["max_abs_err"], "ms": smax["ms"],
+         "plain_ms": smax["plain_ms"]},
+        {"name": "mha_full", "route": "cuda",
+         "source": src + "flash_full_fwd.cu",
+         "replaces": "tools/bench_attn2.py:43",
+         "launches": bench["launches"]["LAUNCHES_MHA_FULL"],
+         "max_abs_err": max(r["max_abs_err"] for n, r in
+                            bench["check"].items() if n.startswith("mha")),
+         "ms": bench["sweep"]["mha_full"]["ms"],
+         "plain_ms": bench["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -389,6 +389,7 @@ int launch(const Args& a, int b, cudaStream_t stream) {
 // views addressed by (batch, row) strides in elements, last dimension
 // contiguous, rows 16-byte aligned (checked by the Python wrapper); lse and
 // delta: contiguous [b, lp, h] f32.  dout must be zero on rows >= l_real.
+// dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
@@ -419,6 +420,7 @@ extern "C" int odgs_flash_attn_bwd_bf16(
   a.dv_sb = dv_sb; a.dv_sl = dv_sl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
+    case 16: return launch<16>(a, b, s);
     case 32: return launch<32>(a, b, s);
     case 64: return launch<64>(a, b, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

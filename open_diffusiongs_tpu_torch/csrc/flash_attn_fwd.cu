@@ -13,6 +13,14 @@
 // into lse [b, Lp, h] f32 (pad rows get 0): the one forward fact the
 // backward (flash_attn_bwd.cu) rebuilds P from.  One template flag, so the
 // stats-free sampling launch is unchanged.
+// With `SMAX` (body _fwd_kernel_packed_smax :146-210, flash_mha_packed(
+// scalar_max=True)) the running max is one scalar per (64-row q tile, head)
+// instead of one per row: each key tile's max is reduced over the whole
+// block (warp shuffles, then shared memory across the 4 warps).  As on the
+// TPU, the zeroed pad keys (score 0) count toward that max when
+// Lp > l_real, and so do the q tile's pad rows (< Lp); rows past Lp are
+// not part of the tile.  A row whose scores all sit > ~126 below the
+// block max underflows to 0 (denominator clamped at 1e-30, as :207).
 // The TPU kernel's V "ones column" (an MXU trick for the row sum) is not
 // carried over: the row sum is accumulated in registers.
 //
@@ -66,7 +74,7 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int DH, bool STATS>
+template <int DH, bool STATS, bool SMAX>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -78,11 +86,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LDQ = DH + 8;      // padded Qs/Ks row: conflict-free frags
   constexpr int LDV = BK + 8;      // padded row of the transposed V tile
   constexpr int CPR = DH / 8;      // 16-byte chunks per head row
-  constexpr int KSTEPS = DH / 16;  // mma k-steps of Q·Kᵀ
+  constexpr int KSTEPS = DH / 16;  // mma k-steps of Q·Kᵀ (1 at DH = 16)
   constexpr int DTILES = DH / 8;   // mma n-tiles of the output row
+  static_assert(DH % 16 == 0 && DH <= 64, "DH in {16, 32, 64}");
   __shared__ __align__(16) __nv_bfloat16 qs[BQ * LDQ];
   __shared__ __align__(16) __nv_bfloat16 ks[BK * LDQ];
   __shared__ __align__(16) __nv_bfloat16 vt[DH * LDV];
+  __shared__ float red[2][NTHREADS / 32];   // SMAX: per-warp tile maxima
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // mma group / thread-in-group
@@ -125,7 +135,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Each thread owns rows g and g+8 of its warp's 16: running max, sum and
   // the output accumulator fragments (row g in [0..1], row g+8 in [2..3]).
-  float m_run[2] = {-INFINITY, -INFINITY};
+  // SMAX: both entries hold the block's one max, which starts at the pad
+  // keys' score 0 when there are pad keys (Lp > l_real).
+  const float m0 = (SMAX && lp > l_real) ? 0.f : -INFINITY;
+  float m_run[2] = {m0, m0};
+  const int r0 = q0 + warp * 16 + g;
   float l_run[2] = {0.f, 0.f};
   float acc[DTILES][4];
 #pragma unroll
@@ -171,6 +185,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < 4; ++j)
           if (k0 + nt * 8 + 2 * t4 + (j & 1) >= l_real) s[nt][j] = -INFINITY;
     }
+    if (SMAX && q0 + BQ > lp) {   // rows past Lp are not part of the block
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (r0 + 8 * (j >> 1) >= lp) s[nt][j] = -INFINITY;
+    }
 
     // Online softmax in base 2.  Every processed tile holds >= 1 real key,
     // so the new max is finite and exp2f(-inf - m) = 0 on the first tile.
@@ -180,10 +201,23 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
       mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
     }
-    mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
-    mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
+    if (SMAX) {   // one max over the block: warp, then the 4 warps
+      mt0 = fmaxf(mt0, mt1);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+        mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, off));
+      if (lane == 0) red[kt & 1][warp] = mt0;
+      __syncthreads();   // red[kt & 1] is rewritten two tiles later, after
+                         // the next tile's two barriers
+#pragma unroll
+      for (int w = 0; w < NTHREADS / 32; ++w) mt0 = fmaxf(mt0, red[kt & 1][w]);
+      mt1 = mt0;
+    } else {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
+      mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
+    }
     const float a0 = exp2f(m_run[0] - mt0), a1 = exp2f(m_run[1] - mt1);
     m_run[0] = mt0;
     m_run[1] = mt1;
@@ -228,8 +262,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   l0 += __shfl_xor_sync(FULL, l0, 2);
   l1 += __shfl_xor_sync(FULL, l1, 1);
   l1 += __shfl_xor_sync(FULL, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + warp * 16 + g;
+  // Clamped as on the TPU (:73, :207): only a SMAX row can underflow to 0.
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const long long o_sl = (long long)h * DH;
   __nv_bfloat16* ob = o + (long long)bi * lp * o_sl + col0;
 #pragma unroll
@@ -254,7 +288,7 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int lp, int h, int l_real, float scale, long long q_sb,
            long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-           long long v_sl, cudaStream_t stream) {
+           long long v_sl, bool smax, cudaStream_t stream) {
   const dim3 grid((lp + BQ - 1) / BQ, h, b);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -262,11 +296,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp32 = static_cast<float*>(lse);
   if (lse != nullptr)
-    flash_fwd_kernel<DH, true><<<grid, NTHREADS, 0, stream>>>(
+    flash_fwd_kernel<DH, true, false><<<grid, NTHREADS, 0, stream>>>(
+        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
+        v_sb, v_sl);
+  else if (smax)
+    flash_fwd_kernel<DH, false, true><<<grid, NTHREADS, 0, stream>>>(
         qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
         v_sb, v_sl);
   else
-    flash_fwd_kernel<DH, false><<<grid, NTHREADS, 0, stream>>>(
+    flash_fwd_kernel<DH, false, false><<<grid, NTHREADS, 0, stream>>>(
         qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
         v_sb, v_sl);
   return static_cast<int>(cudaGetLastError());
@@ -277,23 +315,28 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).
 // Strides are in elements; the last dimension must be contiguous and every
 // row start 16-byte aligned (checked by the Python wrapper).  `lse` is null
-// (no stats) or a contiguous [b, lp, h] f32 buffer.
+// (no stats) or a contiguous [b, lp, h] f32 buffer.  `smax` != 0 selects
+// the scalar-max recurrence, which exports no stats.  dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int lp,
     int h, int dh, int l_real, float scale, long long q_sb, long long q_sl,
     long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-    void* stream) {
+    int smax, void* stream) {
   if (b == 0 || lp == 0 || h == 0) return 0;
   if (l_real < 1 || l_real > lp) return static_cast<int>(cudaErrorInvalidValue);
+  if (smax && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
+    case 16:
+      return launch<16>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
+                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
     case 32:
       return launch<32>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
-                        k_sb, k_sl, v_sb, v_sl, s);
+                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
     case 64:
       return launch<64>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
-                        k_sb, k_sl, v_sb, v_sl, s);
+                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -84,7 +84,7 @@ class DGSDenoiser(nn.Module):
                  range_setting_far: float = 500.0, dtype=torch.float32,
                  gs_raw_offset_scaling: float = 0.0,
                  gs_raw_offset_opacity: float = 0.0,
-                 checkpoint: bool = False):
+                 checkpoint: bool = False, attn_impl: str = "auto"):
         super().__init__()
         if ray_pe_type not in ("relative_plk", "plk"):
             raise ValueError(f"unknown ray_pe_type {ray_pe_type}")
@@ -115,9 +115,12 @@ class DGSDenoiser(nn.Module):
         self.gaussians_pos_embedding = nn.Parameter(torch.zeros(pos_shape))
         self.transformer_input_layernorm = LayerNorm32(width, eps=1e-5)
         # checkpoint: block recompute in the backward (the reference's
-        # use_checkpoint, the JAX package's remat)
+        # use_checkpoint, the JAX package's remat); attn_impl as JAX's
+        # (denoiser.py:84): a dim_heads failing the packed lane test takes
+        # the general route (models/transformer.py)
         self.transformer = DiTStack(width, width // dim_heads, num_layers,
-                                    dtype=dtype, checkpoint=checkpoint)
+                                    dtype=dtype, checkpoint=checkpoint,
+                                    attn_impl=attn_impl)
         self.upsampler = AdaLNHead(width, gs_ch, dtype=dtype)
         self.image_token_decoder = AdaLNHead(width, patch_size ** 2 * gs_ch,
                                              dtype=dtype)

@@ -24,8 +24,18 @@ Numerical hazards pinned here:
     output is bf16, while parameters stay f32;
   * GELU is the tanh approximation (transformer.py:426).
 
-Left out of this port (ROADMAP Queue 1): splash routing, subset
-attention, ring / pipeline / tensor-parallel meshes, qk_norm and W8A8.
+Attention routing (transformer.py:376-380 with :530-532): a block takes
+the packed kernels on the fused qkv (ops/attention.py::flash_attention)
+only when it has no qk_norm, dh <= 64, 128 % dh == 0 and
+heads % (128 // dh) == 0; every other block takes the general route
+(`fused_attention` on [b, l, h, d], flash_full_mha).  The GPU kernels do
+not need the TPU's lane test; it is kept so that one config computes one
+function in both packages: the two routes round the q pre-scale
+differently.
+
+Left out of this port (ROADMAP Queue 1): splash (a JAX library kernel; it
+also carries JAX's training through the general route, which the port's
+card path refuses), ring / pipeline / tensor-parallel meshes and W8A8.
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import flash_attention
+from ..ops.attention import flash_attention, flash_full_mha
+
+ATTN_IMPLS = ("auto", "flash", "splash", "xla")
 
 
 class Linear(nn.Linear):
@@ -110,23 +122,115 @@ class TimestepEmbedder(nn.Module):
         return self.mlp(timestep_embedding(t, self.frequency_embedding_size))
 
 
+def resolve_attn_impl(impl: str) -> str:
+    """'auto' is 'flash': the port has its kernels on the card and their
+    plain twins on the CPU (the JAX package picks 'xla' off the TPU)."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
+    return "flash" if impl == "auto" else impl
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Exact softmax(q·kᵀ / sqrt(d))·v on [b, l, h, d] in f32 (the JAX
+    package's 'xla' route, jax.nn.dot_product_attention); q's dtype out."""
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float())
+    p = torch.softmax(s * q.shape[-1] ** -0.5, dim=-1)
+    return torch.einsum("bhlm,bmhd->blhd", p, v.float()).to(q.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    impl: str = "auto") -> torch.Tensor:
+    """q/k/v [b, l, h, d] (transformer.py:155-167).  'auto'/'flash':
+    flash_full_mha (its kernel on CUDA tensors, its plain twin on CPU
+    ones); 'xla': exact plain attention; 'splash' raises."""
+    impl = resolve_attn_impl(impl)
+    if impl == "splash":
+        raise NotImplementedError(
+            "attn_impl 'splash' is a JAX library kernel the port does not "
+            "reproduce (ROADMAP Queue 1 #15)")
+    if impl == "xla":
+        return dot_product_attention(q, k, v)
+    return flash_full_mha(q, k, v)     # raises for d > 64 (JAX: splash)
+
+
+def subset_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     subset_size: int | None = None, impl: str = "auto"
+                     ) -> torch.Tensor:
+    """Asymmetric "subset" attention (transformer.py:175-188): queries
+    [0:s] attend only among keys [0:s]; queries [s:] attend over all keys.
+    q/k/v [b, l, h, d]."""
+    if subset_size is None or subset_size >= q.shape[1]:
+        return fused_attention(q, k, v, impl)
+    s = subset_size
+    head = fused_attention(q[:, :s], k[:, :s], v[:, :s], impl)
+    rest = fused_attention(q[:, s:], k, v, impl)
+    return torch.cat([head, rest], dim=1)
+
+
+def takes_packed(dim: int, num_heads: int, qk_norm: bool = False) -> bool:
+    """JAX's packed-route test (transformer.py:376-380, :530-532)."""
+    dh = dim // num_heads
+    return (not qk_norm and dh <= 64 and 128 % dh == 0
+            and num_heads % (128 // dh) == 0)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with a learned scale, computed in f32 and cast back
+    (transformer.py:304-316)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        norm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True)
+                                 + self.eps)
+        return (norm * self.weight).to(x.dtype)
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection (timm layout:
-    output rows q | k | v, head-major columns inside each third).  The
-    attention itself is ops/attention.py::flash_attention on the qkv
-    output (column slices, no copy): differentiable through its backward
-    kernels when training, the stats-free forward under no_grad."""
+    output rows q | k | v, head-major columns inside each third).
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    Routed as JAX routes it (`takes_packed`): packed blocks run
+    ops/attention.py::flash_attention on the qkv output (column slices, no
+    copy), differentiable through its backward kernels when training, the
+    stats-free forward under no_grad; every other block (qk_norm, or a head
+    layout failing the lane test) splits qkv into [b, l, h, d], applies the
+    per-head q/k RMSNorm when `qk_norm`, and runs `fused_attention`.  The
+    lane test is the TPU's, not the GPU's: it is kept because the two
+    routes round the q pre-scale differently, and one config must compute
+    one function in both packages."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 attn_impl: str = "auto", qk_norm: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_impl = resolve_attn_impl(attn_impl)
+        self.packed = (self.attn_impl == "flash"
+                       and takes_packed(dim, num_heads, qk_norm))
         self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        if qk_norm:
+            self.q_norm = RMSNorm(dim // num_heads)
+            self.k_norm = RMSNorm(dim // num_heads)
+        self.qk_norm = qk_norm
         self.proj = Linear(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        o = flash_attention(self.qkv(x), num_heads=self.num_heads,
-                            l_real=x.shape[1])
-        return self.proj(o)
+        b, l, d = x.shape
+        qkv = self.qkv(x)
+        if self.packed:
+            return self.proj(flash_attention(qkv, num_heads=self.num_heads,
+                                             l_real=l))
+        q, k, v = (t.reshape(b, l, self.num_heads, -1)
+                   for t in qkv.chunk(3, dim=-1))
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        o = fused_attention(q, k, v, self.attn_impl)
+        return self.proj(o.reshape(b, l, d))
 
 
 class Mlp(nn.Module):
@@ -144,9 +248,11 @@ class DiTBlock(nn.Module):
     """adaLN DiT block (utils_transformer.py:246-290)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 mlp_ratio: float = 4.0, dtype=torch.float32):
+                 mlp_ratio: float = 4.0, dtype=torch.float32,
+                 attn_impl: str = "auto", qk_norm: bool = False):
         super().__init__()
-        self.attn = Attention(hidden_size, num_heads, dtype=dtype)
+        self.attn = Attention(hidden_size, num_heads, dtype=dtype,
+                              attn_impl=attn_impl, qk_norm=qk_norm)
         self.mlp = Mlp(hidden_size, mlp_ratio, dtype=dtype)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size,
@@ -167,13 +273,15 @@ class DiTStack(nn.ModuleList):
     one block over stacked params).  Runs at the real token count L: the
     attention kernel masks its ragged tile itself, so no padding.
     `checkpoint`: recompute each block in the backward instead of keeping
-    its activations (only while grad mode is on)."""
+    its activations (only while grad mode is on).  Like JAX's stack it
+    takes `attn_impl` and no `qk_norm` (transformer.py:480-609)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
-                 checkpoint: bool = False):
+                 checkpoint: bool = False, attn_impl: str = "auto"):
         super().__init__(DiTBlock(hidden_size, num_heads, mlp_ratio,
-                                  dtype=dtype) for _ in range(num_layers))
+                                  dtype=dtype, attn_impl=attn_impl)
+                         for _ in range(num_layers))
         self.checkpoint = checkpoint
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -42,9 +42,13 @@ _F = ctypes.c_float
 # the cudaError_t of its launch.
 SIGNATURES = {
     # q, k, v, o, lse (or None), b, lp, h, dh, l_real, scale,
-    # q/k/v batch and row strides (elements), stream
+    # q/k/v batch and row strides (elements), scalar_max, stream
     "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _L, _L, _L, _L, _L, _L, _P],
+                                 _L, _L, _L, _L, _L, _L, _I, _P],
+    # q, k, v, o, b, lq, h, d, l_real, scale, q/k/v/o batch, row and head
+    # strides (elements), pv_f32, score_bf16, stream
+    "odgs_flash_full_fwd_bf16": [_P] * 4 + [_I] * 5 + [_F] + [_L] * 12
+                                + [_I, _I, _P],
     # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, l_real, scale,
     # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
     "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_L] * 14

@@ -1,11 +1,15 @@
-"""Packed-layout full multi-head attention: CUDA kernels + plain PyTorch twins.
+"""Full multi-head attention: CUDA kernels + plain PyTorch twins.
 
-Counterpart of open_diffusiongs_tpu/ops/attention.py::flash_mha_packed
-(with and without stats) and ::flash_mha_packed_bwd.  The kernels are
-hand-written for sm_90a: csrc/flash_attn_fwd.cu (forward, optionally with
-the base-2 log-sum-exp) and csrc/flash_attn_bwd.cu (the dQ and dK/dV
-kernels).  The plain versions `flash_mha_packed_ref` and
-`flash_mha_packed_bwd_ref` compute the same functions with explicit f32
+Counterparts of open_diffusiongs_tpu/ops/attention.py:
+  * `flash_mha_packed` (with and without stats, and `scalar_max=True`) and
+    `flash_mha_packed_bwd` on the DiT's packed layout [b, Lp, h*dh]:
+    csrc/flash_attn_fwd.cu (forward, optionally with the base-2
+    log-sum-exp, or with one running max per q tile) and
+    csrc/flash_attn_bwd.cu (the dQ and dK/dV kernels);
+  * `flash_full_mha` (:638-665) on [b, l, h, d], the DiT's general route:
+    csrc/flash_full_fwd.cu, which also runs the bench variant `mha_full`
+    of tools/bench_attn2.py (:89-126) on [h, L, 64].
+The plain versions (`*_ref`) compute the same functions with explicit f32
 formulas.  Each wrapper takes its plain version only for CPU tensors (the
 test oracle); on a CUDA tensor it launches its kernel or raises — never a
 silent fallback.
@@ -17,7 +21,9 @@ forward runs the stats forward and saves (qkv, o, lse), as the JAX
 custom_vjp saves (q, k, v, o, lse) (models/transformer.py:266-283); its
 backward runs the backward kernels and returns one contiguous [b, L, 3·h·dh]
 gradient for the fused qkv projection.  Under `torch.no_grad` (sampling)
-`flash_attention` runs the stats-free forward.
+`flash_attention` runs the stats-free forward.  The general route has no
+backward kernel yet (JAX differentiates it through splash): on the card it
+serves sampling only.
 
 The JAX DiT pads the token axis once around the whole stack to a block
 multiple (transformer.py:525-538, plan_packed :125-139: 4098 -> 4608 at
@@ -37,7 +43,13 @@ LOG2E = math.log2(math.e)
 
 LAUNCHES = 0         # stats-free forward kernel launches (CUDA tensors only)
 LAUNCHES_STATS = 0   # forward-with-lse kernel launches
+LAUNCHES_SMAX = 0    # scalar-max packed forward launches
 LAUNCHES_BWD = 0     # backward launches (one dQ + one dK/dV kernel each)
+LAUNCHES_FULL = 0    # flash_full_mha kernel launches (the general route)
+LAUNCHES_MHA_FULL = 0  # mha_full (bench variant) kernel launches
+
+PACKED_DH = (16, 32, 64)   # head widths of the packed kernels
+SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
 
 
 def _check_shapes(q, k, v, num_heads: int, l_real: int):
@@ -53,42 +65,53 @@ def _check_shapes(q, k, v, num_heads: int, l_real: int):
     return b, lp, hd, hd // num_heads
 
 
-def _check_cuda(what: str, ref: torch.Tensor, dh: int, bf16: dict,
-                f32: dict = None):
-    """Device, dtype and layout checks of a kernel launch: `bf16` tensors
-    need a contiguous last dimension and 16-byte aligned rows (column
-    slices of a fused projection qualify); `f32` tensors must be
-    contiguous."""
+def _check_bf16_cuda(what: str, xs: dict, aligned: bool = True):
+    """Device, dtype and layout checks of a kernel launch's bf16 operands:
+    on the first one's CUDA device, last dimension contiguous and, with
+    `aligned`, every row starting 16-byte aligned (column slices of a fused
+    projection qualify)."""
+    ref = next(iter(xs.values()))
     if ref.device.type != "cuda":
         raise RuntimeError(f"{what}: unsupported device {ref.device}")
-    for name, x in bf16.items():
+    for name, x in xs.items():
         if x.device != ref.device:
             raise ValueError(f"{what}: {name} is on {x.device}, not "
                              f"{ref.device}")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"{what}: {name} must be bfloat16, got {x.dtype}")
-        if x.stride(2) != 1:
+        if x.stride(-1) != 1:
             raise ValueError(f"{what}: {name}: last dimension must be "
                              f"contiguous")
-        if x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8:
+        if aligned and (x.data_ptr() % 16
+                        or any(s % 8 for s in x.stride()[:-1])):
             raise ValueError(f"{what}: {name}: rows must start 16-byte "
                              f"aligned (strides {x.stride()})")
+
+
+def _check_cuda(what: str, ref: torch.Tensor, dh: int, bf16: dict,
+                f32: dict = None):
+    """Launch checks of the packed kernels: dh, the `bf16` operands as
+    `_check_bf16_cuda` (rows aligned), `f32` tensors contiguous on ref's
+    device."""
+    if dh not in PACKED_DH:
+        raise ValueError(f"{what}: head dim {dh}: the packed kernels take dh "
+                         f"16, 32 or 64 (JAX also packs 8, 4, 2 and 1; the "
+                         f"port does not)")
+    _check_bf16_cuda(what, bf16)
     for name, x in (f32 or {}).items():
         if x.device != ref.device:
             raise ValueError(f"{what}: {name} is on {x.device}, not "
                              f"{ref.device}")
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise TypeError(f"{what}: {name} must be contiguous float32")
-    if dh not in (32, 64):
-        raise ValueError(f"{what}: head dim {dh}: the kernels take dh 32 or "
-                         f"64")
 
 
-def _refuse_grad(what: str, *xs: torch.Tensor):
+def _refuse_grad(what: str, *xs: torch.Tensor, route: str =
+                 "flash_attention (FlashMHAPacked)"):
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         raise RuntimeError(
             f"{what}: the raw CUDA launch records no gradient; inputs that "
-            f"require grad must go through flash_attention (FlashMHAPacked)")
+            f"require grad must go through {route}")
 
 
 def _heads(x: torch.Tensor, n: int, num_heads: int) -> torch.Tensor:
@@ -109,20 +132,51 @@ def _prescaled_q(q: torch.Tensor, dh: int) -> torch.Tensor:
     return (q.float() * (dh ** -0.5 * LOG2E)).to(q.dtype)
 
 
+def _block_max(s: torch.Tensor, block_rows: int, pad_keys: bool
+               ) -> torch.Tensor:
+    """The scalar-max kernel's shared max: over each block of `block_rows`
+    q rows (the last one partial) and every key of s [b, h, Lp, n], and the
+    pad keys' score 0 when there are any; broadcast back to [b, h, Lp, 1]."""
+    b, h, lp, n = s.shape
+    nb = -(-lp // block_rows)
+    sp = torch.nn.functional.pad(s.amax(-1), (0, nb * block_rows - lp),
+                                 value=-torch.inf)
+    m = sp.reshape(b, h, nb, block_rows).amax(-1)
+    if pad_keys:
+        m = m.clamp(min=0.0)
+    return m.repeat_interleave(block_rows, dim=-1)[..., :lp, None]
+
+
 def flash_mha_packed_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, num_heads: int, l_real: int,
-                         with_stats: bool = False):
+                         with_stats: bool = False, scalar_max: bool = False,
+                         block_rows: int = SMAX_BLOCK_ROWS):
     """Plain PyTorch version of the forward kernel: explicit f32 matmuls and
     a softmax in base 2 over the keys < l_real, with q~ as the kernels form
     it.  Returns o [b, Lp, h*dh] in q's dtype (rows >= l_real garbage), and
     with `with_stats` also lse [b, Lp, h] f32: m + log2(sum 2^(s - m)) of
-    every real row, 0 on pad rows."""
+    every real row, 0 on pad rows.
+
+    `scalar_max` is the block-scalar recurrence of `_fwd_kernel_packed_smax`
+    (JAX :146-210) in closed form: one shared max M per block of
+    `block_rows` q rows (the kernel's q tile: 64 for the CUDA kernel, bq on
+    the TPU) and head, over all its rows < Lp (pad rows included) and keys
+    < l_real, plus the zeroed pad keys' score 0 when Lp > l_real; then
+    p = 2^(s - M) and o = p·v / max(sum p, 1e-30).  A row whose scores all
+    sit > ~126 below M underflows to o = 0, as on the TPU (precondition
+    :157-163)."""
     b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
+    if scalar_max and with_stats:
+        raise ValueError("flash_mha_packed: scalar_max exports no stats "
+                         "(the stats need the row-max kernel)")
     s = torch.matmul(_heads(_prescaled_q(q, dh), lp, num_heads),
                      _heads(k, l_real, num_heads).transpose(-1, -2))
-    m = s.amax(dim=-1, keepdim=True)
+    m = (_block_max(s, block_rows, lp > l_real) if scalar_max
+         else s.amax(dim=-1, keepdim=True))
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if scalar_max:
+        l = l.clamp(min=1e-30)
     o = _unheads(torch.matmul(p, _heads(v, l_real, num_heads)) / l)
     o = o.to(q.dtype)
     if not with_stats:
@@ -133,22 +187,31 @@ def flash_mha_packed_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     num_heads: int, l_real: int, with_stats: bool = False):
+                     num_heads: int, l_real: int, with_stats: bool = False,
+                     scalar_max: bool = False):
     """Full MHA on the packed layout [b, Lp, h*dh] (head h in columns
     h*dh .. h*dh+dh-1); keys >= l_real are excluded.  Returns a new
     contiguous [b, Lp, h*dh] tensor in q's dtype (pad rows garbage), and
     with `with_stats` also the base-2 lse [b, Lp, h] f32 (pad rows 0).
+    `scalar_max` runs the block-scalar recurrence (one running max per
+    64-row q tile and head; see `flash_mha_packed_ref`), which exports no
+    stats.
 
-    CPU tensors: `flash_mha_packed_ref`.  CUDA tensors: the sm_90a kernel,
-    which takes bf16, dh in {32, 64} (the flagship's 64 and the tiny
-    configs' 32), a contiguous last dimension and 16-byte aligned rows —
+    CPU tensors: `flash_mha_packed_ref` (with block_rows 64, the kernel's q
+    tile).  CUDA tensors: the sm_90a kernel, which takes bf16, dh in
+    {16, 32, 64} (the packed layouts of dh <= 64 with 128 % dh == 0; the
+    flagship's 64), a contiguous last dimension and 16-byte aligned rows —
     q/k/v may be column slices of one fused qkv projection.  It records no
     gradient: see `flash_attention`."""
-    global LAUNCHES, LAUNCHES_STATS
+    global LAUNCHES, LAUNCHES_STATS, LAUNCHES_SMAX
     b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
+    if scalar_max and with_stats:
+        raise ValueError("flash_mha_packed: scalar_max exports no stats "
+                         "(the stats need the row-max kernel)")
     if q.device.type == "cpu":
         return flash_mha_packed_ref(q, k, v, num_heads=num_heads,
-                                    l_real=l_real, with_stats=with_stats)
+                                    l_real=l_real, with_stats=with_stats,
+                                    scalar_max=scalar_max)
     _check_cuda("flash_mha_packed", q, dh, dict(q=q, k=k, v=v))
     _refuse_grad("flash_mha_packed", q, k, v)
     out = torch.empty((b, lp, hd), dtype=q.dtype, device=q.device)
@@ -160,13 +223,16 @@ def flash_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         None if lse is None else lse.data_ptr(), b, lp, num_heads, dh,
         l_real, dh ** -0.5 * LOG2E,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1),
+        v.stride(0), v.stride(1), int(scalar_max),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_mha_packed")
     if with_stats:
         LAUNCHES_STATS += 1
         return out, lse
-    LAUNCHES += 1
+    if scalar_max:
+        LAUNCHES_SMAX += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -249,7 +315,7 @@ def flash_mha_packed_bwd(q, k, v, o, do, lse, *, num_heads: int,
     masked).  Primal dtypes, rows >= l_real exactly 0.
 
     CPU tensors: `flash_mha_packed_bwd_ref`.  CUDA tensors: the two
-    sm_90a kernels of csrc/flash_attn_bwd.cu (bf16, dh 32 or 64), whose
+    sm_90a kernels of csrc/flash_attn_bwd.cu (bf16, dh 16, 32 or 64), whose
     three outputs are column slices of one fused [b, Lp, 3*h*dh] tensor.
     delta = rowsum(dO * O) is formed here in plain torch, as in JAX."""
     return _bwd_fused(q, k, v, o, do, lse, num_heads, l_real).chunk(3, -1)
@@ -286,3 +352,156 @@ def flash_attention(qkv: torch.Tensor, *, num_heads: int, l_real: int
         return FlashMHAPacked.apply(qkv, num_heads, l_real)
     q, k, v = qkv.chunk(3, dim=-1)
     return flash_mha_packed(q, k, v, num_heads=num_heads, l_real=l_real)
+
+
+# ---------------------------------------------------------------------------
+# The general route: [b, l, h, d], any d <= 64 (JAX flash_full_mha), and the
+# bench variant mha_full of tools/bench_attn2.py.
+# ---------------------------------------------------------------------------
+
+
+def _full_scale(d: int, dtype: torch.dtype) -> float:
+    """d^-1/2 * log2(e) rounded to `dtype`, as JAX forms it (:652)."""
+    return float(torch.tensor(d ** -0.5 * LOG2E, dtype=dtype))
+
+
+def _full_prescaled_q(q: torch.Tensor) -> torch.Tensor:
+    """q~ of flash_full_mha: `q * scale` with the scale AND the product in
+    q's dtype (JAX :652-654).  In bf16 the scale itself is rounded (d = 64:
+    0.18066 for 0.18034, +0.18 %), unlike the packed path's `_prescaled_q`,
+    which multiplies in f32 and rounds once."""
+    return q * torch.tensor(_full_scale(q.shape[-1], q.dtype),
+                            dtype=q.dtype, device=q.device)
+
+
+def _check_full(q, k, v):
+    """q [b, l, h, d] and k/v [b, lk, h, d] (lk may differ: the second half
+    of subset attention); returns (b, l, lk, h, d)."""
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or (q.shape[0], *q.shape[2:]) != (k.shape[0], *k.shape[2:])
+            or k.shape[1] == 0):
+        raise ValueError(f"q/k/v must be [b, l, h, d] / [b, lk, h, d], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 1 <= q.shape[-1] <= 64:
+        raise ValueError(f"flash_full_mha: head dim {q.shape[-1]}: the kernel "
+                         f"takes d <= 64 (JAX sends wider heads to splash, "
+                         f"which the port does not have)")
+    b, l, h, d = q.shape
+    return b, l, k.shape[1], h, d
+
+
+def flash_full_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the general-route kernel: q~ as
+    `_full_prescaled_q`, then f32 scores, a base-2 softmax over all keys
+    with the denominator clamped at 1e-30 (:73), and P·V in f32.  Returns
+    [b, l, h, d] in q's dtype."""
+    _check_full(q, k, v)
+    s = torch.einsum("blhd,bmhd->bhlm", _full_prescaled_q(q).float(),
+                     k.float())
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    o = torch.einsum("bhlm,bmhd->blhd", p / l, v.float())
+    return o.to(q.dtype)
+
+
+def flash_full_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+    """Full multi-head attention on q/k/v [b, l, h, d] with any d <= 64, any
+    h and any l (JAX flash_full_mha; the wrapper pads nothing, the kernel
+    masks its ragged tiles).  k/v may hold another number of rows than q
+    (subset attention's second half; JAX's kernel takes equal lengths only).
+    Returns a new contiguous [b, l, h, d] tensor in q's dtype.
+
+    CPU tensors: `flash_full_mha_ref`.  CUDA tensors: the sm_90a kernel of
+    csrc/flash_full_fwd.cu (bf16, last dimension contiguous, any other
+    strides).  It records no gradient and refuses inputs that require grad
+    under grad mode: the general route has no backward kernel yet."""
+    global LAUNCHES_FULL
+    b, l, lk, h, d = _check_full(q, k, v)
+    if q.device.type == "cpu":
+        return flash_full_mha_ref(q, k, v)
+    _check_bf16_cuda("flash_full_mha", dict(q=q, k=k, v=v), aligned=False)
+    _refuse_grad("flash_full_mha", q, k, v,
+                 route="a backward of the general route, which the port "
+                       "does not have yet (ROADMAP Queue 1)")
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    err = _build.load_library().odgs_flash_full_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, d,
+        lk, _full_scale(d, q.dtype), *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *out.stride()[:3], 1, 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_full_mha")
+    LAUNCHES_FULL += 1
+    return out
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _check_mha_full(q, k, v, l_real: int):
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q/k/v must share one [h, L, d] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 1 <= l_real <= q.shape[1]:
+        raise ValueError(f"l_real={l_real} outside [1, L={q.shape[1]}]")
+
+
+def mha_full_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 l_real: int, pv_f32: bool = False, score_bf16: bool = False
+                 ) -> torch.Tensor:
+    """Plain PyTorch version of the bench variant (tools/bench_attn2.py::
+    mha_full): q/k/v [h, L, d], q PRE-SCALED by d^-1/2 * log2(e); keys
+    < l_real.  `score_bf16` rounds the scores, s - m and 2^(s - m) to bf16
+    (:55-63); without `pv_f32` P is rounded to bf16 for P·V and for the
+    row sum, which the TPU takes through the same matmul (:72-78).  Takes
+    the final row max directly; the kernel's online rescaling differs from
+    it only by rounding.  Returns [h, L, d] in q's dtype (every row
+    computed)."""
+    _check_mha_full(q, k, v, l_real)
+    s = torch.matmul(q.float(), k[:, :l_real].float().transpose(-1, -2))
+    if score_bf16:
+        s = _round_bf16(s)
+    x = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(_round_bf16(x)) if score_bf16 else torch.exp2(x)
+    if score_bf16 or not pv_f32:
+        p = _round_bf16(p)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return (torch.matmul(p, v[:, :l_real].float()) / l).to(q.dtype)
+
+
+def mha_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             l_real: int, pv_f32: bool = False, score_bf16: bool = False
+             ) -> torch.Tensor:
+    """The bench variant of the general-route kernel (tools/bench_attn2.py::
+    mha_full): q/k/v [h, L, 64], q pre-scaled, keys < l_real; `pv_f32` takes
+    the tf32 P·V, otherwise P is a bf16 operand; `score_bf16` rounds the
+    softmax's scores to bf16.  Returns [h, L, 64] in q's dtype.
+
+    CPU tensors: `mha_full_ref`.  CUDA tensors: csrc/flash_full_fwd.cu with
+    the two flags (bf16, d = 64, 16-byte aligned rows); no gradient."""
+    global LAUNCHES_MHA_FULL
+    _check_mha_full(q, k, v, l_real)
+    if q.device.type == "cpu":
+        return mha_full_ref(q, k, v, l_real=l_real, pv_f32=pv_f32,
+                            score_bf16=score_bf16)
+    h, lq, d = q.shape
+    if d != 64:
+        raise ValueError(f"mha_full: head dim {d}: the bench variants take "
+                         f"d = 64")
+    _check_bf16_cuda("mha_full", dict(q=q, k=k, v=v))
+    _refuse_grad("mha_full", q, k, v, route="no route (bench only)")
+    out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
+    # [h, L, d] is one batch element whose heads sit at stride(0)
+    err = _build.load_library().odgs_flash_full_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, lq, h, d,
+        l_real, 1.0, 0, q.stride(1), q.stride(0), 0, k.stride(1), k.stride(0),
+        0, v.stride(1), v.stride(0), 0, out.stride(1), out.stride(0),
+        int(pv_f32), int(score_bf16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mha_full")
+    LAUNCHES_MHA_FULL += 1
+    return out

@@ -11,7 +11,9 @@ JAX package reach the port through this bridge:
     Linear whose output rows are q | k | v;
   * the JAX stack is one nn.scan whose params carry a leading layer axis
     (`transformer/layers/block/*`, transformer.py:598-607); the port has
-    one module per layer (`transformer.{i}.*`).
+    one module per layer (`transformer.{i}.*`);
+  * a qk_norm block's per-head RMSNorm scales `attn/{q,k}_norm/weight`
+    (transformer.py:395-397) become `attn.{q,k}_norm.weight`.
 Inputs are NumPy arrays (pass a flax tree through `jax.device_get`).
 """
 
@@ -55,6 +57,9 @@ _LAYER_MAP = {
     "adaLN_modulation.1.weight": ("adaLN_modulation_1/kernel", True),
     "adaLN_modulation.1.bias": ("adaLN_modulation_1/bias", False),
 }
+# present only in qk_norm blocks
+_QK_NORM_MAP = {"attn.q_norm.weight": "attn/q_norm/weight",
+                "attn.k_norm.weight": "attn/k_norm/weight"}
 
 
 def flatten_params(tree: Dict[str, Any], prefix: str = ""
@@ -88,14 +93,31 @@ def state_dict_from_flax(params: Dict[str, Any],
         sd["gaussians_pos_embedding"] = sd["gaussians_pos_embedding"][None]
     n_layers = flat[_LAYER_PREFIX + "attn/q/kernel"].shape[0]
     for i in range(n_layers):
-        def layer(sub):
-            return flat[_LAYER_PREFIX + sub][i]
-        sd[f"transformer.{i}.attn.qkv.weight"] = np.concatenate(
-            [layer(f"attn/{p}/kernel").T for p in "qkv"], axis=0)
-        sd[f"transformer.{i}.attn.qkv.bias"] = np.concatenate(
-            [layer(f"attn/{p}/bias") for p in "qkv"], axis=0)
-        for name, (sub, transpose) in _LAYER_MAP.items():
-            w = layer(sub)
-            sd[f"transformer.{i}.{name}"] = w.T if transpose else w
+        block = {sub[len(_LAYER_PREFIX):]: w[i] for sub, w in flat.items()
+                 if sub.startswith(_LAYER_PREFIX)}
+        sd.update({f"transformer.{i}.{name}": w
+                   for name, w in _block_state(block).items()})
     return {k: torch.tensor(v, dtype=torch.float32)
             for k, v in sd.items()}
+
+
+def _block_state(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """One DiTBlock's flat flax params (`attn/q/kernel`, ...) -> the
+    port's block state-dict entries (`attn.qkv.weight`, ...)."""
+    sd = {"attn.qkv.weight": np.concatenate(
+              [flat[f"attn/{p}/kernel"].T for p in "qkv"], axis=0),
+          "attn.qkv.bias": np.concatenate(
+              [flat[f"attn/{p}/bias"] for p in "qkv"], axis=0)}
+    for name, (sub, transpose) in _LAYER_MAP.items():
+        sd[name] = flat[sub].T if transpose else flat[sub]
+    sd.update({name: flat[sub] for name, sub in _QK_NORM_MAP.items()
+               if sub in flat})
+    return sd
+
+
+def block_state_dict_from_flax(params: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """flax DiTBlock params (NumPy leaves) -> the port's DiTBlock
+    state_dict (f32 tensors), q/k norms included when present."""
+    return {k: torch.tensor(v, dtype=torch.float32)
+            for k, v in _block_state(flatten_params(params)).items()}

@@ -30,7 +30,7 @@ def _inputs(rng, b, l, lp, hd, pad_fill=None):
     return np.concatenate([real, pad], axis=2)          # [3, b, lp, hd]
 
 
-@pytest.mark.parametrize("h,dh", [(4, 32), (2, 64)])
+@pytest.mark.parametrize("h,dh", [(4, 32), (2, 64), (8, 16)])
 def test_ref_matches_jax_packed_kernel(h, dh):
     rng = np.random.default_rng(dh)
     l, lp = 300, 512

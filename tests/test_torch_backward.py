@@ -51,7 +51,7 @@ def _attn_inputs(rng, b, l, lp, hd):
     return rng.normal(size=(4, b, lp, hd)).astype(np.float32)
 
 
-@pytest.mark.parametrize("h,dh", [(2, 64), (4, 32)])
+@pytest.mark.parametrize("h,dh", [(2, 64), (4, 32), (8, 16)])
 def test_stats_forward_and_backward_ref_match_jax_kernels(h, dh):
     rng = np.random.default_rng(11 + dh)
     b, l, lp = 1, 300, 384
@@ -125,10 +125,12 @@ def test_attention_function_matches_autograd_of_plain_twin():
 
 def test_dit_attention_layer_reaches_qkv_weights():
     """The DiT's Attention routes through the Function: every qkv weight
-    gets a gradient (the fault this PR repairs left it None on CUDA)."""
+    gets a gradient (the fault this PR repairs left it None on CUDA).  A
+    packed layout (4 heads of 32; 2 heads of 32 take the general route)."""
     torch.manual_seed(0)
-    layer = Attention(64, 2)
-    x = torch.randn(2, 40, 64)
+    layer = Attention(128, 4)
+    assert layer.packed
+    x = torch.randn(2, 40, 128)
     layer(x).square().mean().backward()
     assert layer.qkv.weight.grad is not None
     assert layer.qkv.weight.grad.abs().sum() > 0

@@ -9,6 +9,12 @@
   utils/convert.py::state_dict_from_flax, through both the XLA attention
   and the interpret-mode packed Pallas kernel: same bar.
 * The bridge inverts tools/convert_reference_ckpt.py::convert_state_dict.
+* The general attention route: a qk_norm DiTBlock (the reference's
+  DiTBlock_QK_Norm) and denoisers whose head layout fails the packed lane
+  test (width 96, heads of 24) or takes the packed kernels at dh 16 (width
+  128), against the JAX modules with attn_impl="xla" at the same bar;
+  subset attention; and the route each (width, dim_heads, qk_norm) takes,
+  against the route JAX's own modules take.
 """
 
 import os
@@ -20,11 +26,13 @@ import numpy as np
 import pytest
 import torch
 
+from open_diffusiongs_tpu.models import transformer as jtr
 from open_diffusiongs_tpu.models.denoiser import DGSDenoiser as JDenoiser
 from open_diffusiongs_tpu.ops.rays import rays_chw
+from open_diffusiongs_tpu_torch.models import transformer as ttr
 from open_diffusiongs_tpu_torch.models.denoiser import DGSDenoiser
-from open_diffusiongs_tpu_torch.utils.convert import (flatten_params,
-                                                      state_dict_from_flax)
+from open_diffusiongs_tpu_torch.utils.convert import (
+    block_state_dict_from_flax, flatten_params, state_dict_from_flax)
 from utils3d import orbit_cameras
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -65,9 +73,9 @@ def test_reference_state_dict_loads_strict_and_reproduces_outputs(name):
 
 
 def _jax_case(attn_impl, ray_pe_type="relative_plk", hard_pixelalign=True,
-              v=2, res=16):
+              v=2, res=16, width=128, dim_heads=64):
     rng = np.random.default_rng(5)
-    kw = dict(width=128, patch_size=8, n_gaussians=2, dim_heads=64,
+    kw = dict(width=width, patch_size=8, n_gaussians=2, dim_heads=dim_heads,
               num_layers=2, ray_pe_type=ray_pe_type,
               hard_pixelalign=hard_pixelalign, range_setting_far=10.0)
     jm = JDenoiser(**kw, dtype=jnp.float32, remat=False, attn_impl=attn_impl)
@@ -141,3 +149,117 @@ def test_bf16_compute_keeps_f32_residual_and_outputs():
         g, img_xyz = model(*(torch.from_numpy(np.array(a)) for a in inputs))
     assert all(t.dtype == torch.float32 for t in g)
     assert all(torch.isfinite(t).all() for t in g)
+
+
+def _perturbed(params, rng):
+    """Every leaf moved off flax's init (zero biases, unit scales), so the
+    bridge's placement of each one is exercised."""
+    return jax.tree.map(lambda p: p + 0.05 * jnp.asarray(
+        rng.normal(size=p.shape), p.dtype), params)
+
+
+def test_qk_norm_block_matches_jax():
+    """The reference's DiTBlock_QK_Norm: port DiTBlock(qk_norm=True) (the
+    general route, flash_full_mha's twin on CPU) vs JAX DiTBlock(qk_norm=
+    True, attn_impl="xla"); the bridge carries the q/k RMSNorm scales."""
+    rng = np.random.default_rng(9)
+    width, heads, l = 128, 4, 37
+    x = rng.normal(size=(2, l, width)).astype(np.float32)
+    c = rng.normal(size=(2, width)).astype(np.float32)
+    jb = jtr.DiTBlock(width, heads, qk_norm=True, attn_impl="xla")
+    params = _perturbed(jb.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                                jnp.asarray(c)), rng)
+    want = np.asarray(jb.apply(params, jnp.asarray(x), jnp.asarray(c)))
+    sd = block_state_dict_from_flax(jax.device_get(params))
+    flat = flatten_params(jax.device_get(params))
+    for name in ("q_norm", "k_norm"):
+        np.testing.assert_array_equal(sd[f"attn.{name}.weight"].numpy(),
+                                      flat[f"attn/{name}/weight"])
+    block = ttr.DiTBlock(width, heads, qk_norm=True)
+    block.load_state_dict(sd, strict=True)
+    assert not block.attn.packed
+    with torch.no_grad():
+        got = block(torch.from_numpy(x), torch.from_numpy(c))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("width,dim_heads,packed", [(96, 24, False),
+                                                    (128, 16, True)])
+def test_general_and_dh16_denoisers_match_jax(width, dim_heads, packed):
+    """4 heads of 24 fail the lane test and take the general route; 8 heads
+    of 16 take the packed kernels at dh 16."""
+    kw, params, inputs, jg, jxyz = _jax_case("xla", width=width,
+                                             dim_heads=dim_heads)
+    model = DGSDenoiser(**kw)
+    model.load_state_dict(state_dict_from_flax(jax.device_get(params)),
+                          strict=True)
+    assert all(blk.attn.packed == packed for blk in model.transformer)
+    with torch.no_grad():
+        g, img_xyz = model(*(torch.from_numpy(np.array(x)) for x in inputs))
+    for field in OUTS:
+        np.testing.assert_allclose(getattr(g, field).numpy(),
+                                   np.asarray(getattr(jg, field)),
+                                   err_msg=field, **TOL)
+    np.testing.assert_allclose(img_xyz.numpy(), np.asarray(jxyz), **TOL)
+
+
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_subset_attention_matches_jax(impl):
+    """Queries [0:s] see keys [0:s], queries [s:] see all
+    (tests/test_attention.py:205-227); s >= l is full attention."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.normal(size=(1, 24, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for s_ in (9, 24):
+        want = np.asarray(jtr.subset_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), subset_size=s_,
+            impl="xla"))
+        got = ttr.subset_attention(tq, tk, tv, subset_size=s_, impl=impl)
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+        ttr.fused_attention(tq, tk, tv, "splash")
+
+
+def _jax_route(width, dim_heads, qk_norm):
+    """The route JAX's own modules take with attn_impl 'flash': shapes only
+    (jax.eval_shape of init), with the two attention entry points replaced
+    by recorders.  JAX's stack has no qk_norm, so a qk_norm block is built
+    as the stack would hand it the packed plan."""
+    seen = []
+
+    def packed(*args, **kwargs):
+        seen.append("packed")
+        return lambda q, k, v: q
+
+    def general(q, k, v, impl="auto"):
+        seen.append("general")
+        return q
+
+    heads = width // dim_heads
+    x, c = jnp.zeros((1, 5, width)), jnp.zeros((1, width))
+    if qk_norm:
+        module = jtr.DiTBlock(width, heads, attn_impl="flash", qk_norm=True,
+                              packed_l=5, packed_blocks=(512, 512))
+    else:
+        module = jtr.DiTStack(width, heads, 1, remat=False, attn_impl="flash")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtr, "resolve_attn_impl", lambda impl: impl)
+        mp.setattr(jtr, "_make_packed_attn", packed)
+        mp.setattr(jtr, "fused_attention", general)
+        jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), x, c))
+    assert len(set(seen)) == 1, seen
+    return seen[0]
+
+
+@pytest.mark.parametrize("width,dim_heads,qk_norm", [
+    (1024, 64, False), (1024, 64, True), (768, 48, False), (1024, 16, False),
+    (128, 16, False), (96, 24, False), (64, 32, False), (128, 32, False),
+    (512, 8, False), (256, 64, True)])
+def test_routing_matches_jax(width, dim_heads, qk_norm):
+    heads = width // dim_heads
+    port = ttr.Attention(width, heads, qk_norm=qk_norm)
+    route = "packed" if port.packed else "general"
+    assert route == _jax_route(width, dim_heads, qk_norm)
+    assert port.packed == ttr.takes_packed(width, heads, qk_norm)
+    assert not ttr.Attention(width, heads, attn_impl="xla").packed
