@@ -12,6 +12,7 @@ Phases, one summary line each (every failure raises and exits non-zero):
   3. attention the flash-attention kernel against flash_mha_packed_ref on
                bf16 inputs at the 256^2 DiT shape (L = 4098, 16 heads of 64)
                and on a ragged layout (Lp > l_real, garbage pad rows);
+               timed beside its plain twin and SDPA's forward;
   4. blend     the tile-blend kernel against blend_tiles_ref on one real
                256^2 view (random-init denoiser Gaussians, binned by the
                port);
@@ -29,13 +30,19 @@ Phases, one summary line each (every failure raises and exits non-zero):
                layout with 1e4 garbage in the pad rows of q/k/v and dO;
                bounds, per batch element: o rel-max 8e-3, lse max abs 1e-3
                (base-2 units), dq/dk/dv rel-max 1e-2 each, pad-row grads
-               exactly 0;
+               exactly 0; two backward launches on the same inputs must
+               agree bit for bit and csrc/flash_attn_bwd.cu must hold no
+               atomics; timed beside SDPA's forward at b = 4, its backward
+               alone (autograd.grad over a retained graph) and the pair,
+               and split by kernel (device ms per call of the hand-written
+               kernels and the plain-torch glue, torch.profiler);
   7. blend backward
                the blend backward kernel against blend_bwd_ref on phase
                4's view with mean-squared cotangents against a seeded
                random target (atol 2e-5, rtol 2e-4, and max|err| / max|ref|
                1e-5); the table gradient d_packed through BlendTiles
-               twice, bit-identical;
+               twice, bit-identical (phase 4 also counts the (pixel,
+               candidate) pairs the view needs, for both blend bounds);
   8. train path
                the same config with system.use_lpips false, random weights
                from seed 0, AdamW / cosine / clip 0.5 / EMA 0.9999 from the
@@ -68,16 +75,23 @@ Phases, one summary line each (every failure raises and exits non-zero):
                f. the packed kernels at dh = 16: forward, forward with lse
                   and backward at b = 2, L = 4098, 16 heads of 16 on a fused
                   qkv (per-element scales, phase 6's bounds), and a ragged
-                  Lp = 4608.
-Then the kernels' JSON line, the card line, and the result line
-{"ok": true, "device": {...}}.  Imports nothing of JAX.  Without a CUDA
-device it exits non-zero and prints no result.
+                  Lp = 4608;
+               g. the packed kernels (forward with and without lse, scalar
+                  max, backward) at small and ragged shapes off the main
+                  path's tiling, dh 16, 32 and 64 (phase 6's bounds).
+Then the kernels' JSON line (each kernel's launches on its main path, max
+abs error, ms, plain ms, bound ms and what sets it, from this run's shapes
+and data at the H100's published peaks, and the one-call PyTorch time or
+null), the card line, and the result line {"ok": true, "device": {...}}.
+Imports nothing of JAX.  Without a CUDA device it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,6 +117,18 @@ TRAIN_START_STEP = 151   # every C()-scheduled loss term at full weight
 TRAIN_STEPS = 3          # timed, after one warm-up step
 QKV_SCALES = (1.0, 0.6, 1.4, 0.8)   # phase 6, one per batch element
 DO_SCALES = (1.0, 2.0, 0.5, 1.5)
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).  A
+# kernel's bound is the larger of its operations over the peak rate of
+# their type and its bytes (each input read once, each output written
+# once) over the memory rate.
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+# f32 operations one examined (pixel, candidate) pair of the blend needs:
+# the power (11), the exponential and alpha (3), the transmittance test
+# (2); the backward re-walk adds the gradient of alpha and of the
+# candidate's 10 attributes (~40 multiply-adds, csrc/blend_bwd.cu).
+BLEND_FWD_OPS_PER_PAIR = 16
+BLEND_BWD_OPS_PER_PAIR = 16 + 80
 
 
 def card_line() -> str:
@@ -126,6 +152,89 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(ops: dict, nbytes: float) -> dict:
+    """bound_ms and what sets it, from operations by type and bytes."""
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attn_fwd_bound(b, lp, l_real, h, dh, stats=False, pv="bf16") -> dict:
+    """Packed / general attention forward: q·kᵀ in bf16 and P·V in `pv`
+    over keys < l_real; q and o of Lp rows, k and v of l_real rows, bf16;
+    the lse in f32."""
+    prod = 2 * b * h * lp * l_real * dh
+    ops = {"bf16": 2 * prod} if pv == "bf16" else {"bf16": prod, pv: prod}
+    nbytes = 2 * (2 * b * lp + 2 * b * l_real) * h * dh
+    return bound(ops, nbytes + (4 * b * lp * h if stats else 0))
+
+
+def attn_bwd_bound(b, lp, l_real, h, dh) -> dict:
+    """Packed backward: the 5 products the function needs (S, dP, dQ, dK,
+    dV) over real rows and keys; q, k, v, o, dO and the lse read on real
+    rows, dq / dk / dv written whole."""
+    ops = {"bf16": 5 * 2 * b * h * l_real * l_real * dh}
+    nbytes = 2 * (5 * b * l_real + 3 * b * lp) * h * dh + 4 * b * l_real * h
+    return bound(ops, nbytes)
+
+
+def device_ms_by_kernel(torch, fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel fn() launches, by torch.profiler,
+    largest first, under its name cut to 60 characters (empty if the
+    profiler sees no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::|at::native::",
+                          "", e.key)[:60]
+            out[name] = (out.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / iters)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def blend_walk(torch, packed, idx, counts, tiles_x, tile_chunk=16):
+    """What this view's blend needs: per (tile, pixel), the candidates the
+    pixel examines front to back (through its stopping one, or all
+    counts[t]); the transmittance test is taken in log space, so a pixel
+    right at the 1e-4 threshold may count one candidate more or less than
+    the kernel's sequential product.  Returns (examined pairs, rows read:
+    per tile the candidates up to its deepest pixel)."""
+    num_tiles, k = idx.shape
+    pix = torch.arange(256, device=idx.device)
+    slot = torch.arange(k, device=idx.device)
+    pairs = rows = 0
+    for t0 in range(0, num_tiles, tile_chunk):
+        t = torch.arange(t0, min(t0 + tile_chunk, num_tiles),
+                         device=idx.device)
+        a = packed[idx[t].long()]                                # [t, K, 10]
+        px = ((t % tiles_x) * 16)[:, None] + pix % 16            # [t, 256]
+        py = ((t // tiles_x) * 16)[:, None] + pix // 16
+        dx = a[:, None, :, 0] - px[..., None].float()            # [t, 256, K]
+        dy = a[:, None, :, 1] - py[..., None].float()
+        power = (-0.5 * (a[:, None, :, 2] * dx * dx
+                         + a[:, None, :, 4] * dy * dy)
+                 - a[:, None, :, 3] * dx * dy)
+        alpha = torch.clamp(a[:, None, :, 8] * torch.exp(power), max=0.99)
+        live = slot < counts[t][:, None]                          # [t, K]
+        valid = (power <= 0) & (alpha >= 1 / 255) & live[:, None, :]
+        log_t = torch.cumsum(torch.where(valid, torch.log1p(-alpha), 0.0),
+                             -1)
+        stop = valid & (log_t < torch.log(torch.tensor(1e-4)))
+        first = torch.where(stop.any(-1), stop.float().argmax(-1) + 1,
+                            counts[t][:, None].long())
+        pairs += int(first.sum())
+        rows += int(first.amax(-1).sum())
+    return pairs, rows
 
 
 def phase_device(torch) -> dict:
@@ -201,6 +310,7 @@ def phase_attention(torch, dev) -> dict:
     res = {"max_abs_err": err, "rel_max_err": rel,
            "ragged_max_abs_err": err_r, "ragged_rel_max_err": rel_r,
            "ms": ms, "plain_ms": plain_ms, "sdpa_ms": sdpa_ms,
+           **attn_fwd_bound(1, l, l, 16, 64),
            "shape": f"b=1 L={l} h=16 dh=64 bf16"}
     print(f"[3 attention] {json.dumps(res)}", flush=True)
     for name, r in (("L=4098", rel), ("ragged Lp=4608", rel_r)):
@@ -259,9 +369,16 @@ def phase_blend(torch, dev, system) -> dict:
     errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
     ms = cuda_ms(lambda: blend_kernel.blend_tiles(*args), 20)
     plain_ms = cuda_ms(lambda: blend_kernel.blend_tiles_ref(*args), 2)
+    pairs, rows = blend_walk(torch, packed, bins.idx, bins.counts, tiles_x)
+    n_tiles = bins.idx.shape[0]
+    # candidate rows (10 f32) and their indices, counts; t_fin, acc_c (3)
+    # and acc_d written per pixel
+    nbytes = rows * 44 + n_tiles * 4 + n_tiles * 256 * 5 * 4
     res = {"max_abs_err": max(errs), "err_t_fin": errs[0],
            "err_acc_c": errs[1], "err_acc_d": errs[2],
-           "ms": ms, "plain_ms": plain_ms,
+           "ms": ms, "plain_ms": plain_ms, "examined_pairs": pairs,
+           "rows_read": rows,
+           **bound({"f32": pairs * BLEND_FWD_OPS_PER_PAIR}, nbytes),
            "shape": f"T={bins.idx.shape[0]} K={bins.idx.shape[1]} "
                     f"N={packed.shape[0] - 1}",
            "mean_count": float(bins.counts.float().mean()),
@@ -270,7 +387,7 @@ def phase_blend(torch, dev, system) -> dict:
     if not max(errs) <= BLEND_ABS_BOUND:
         raise AssertionError(f"blend kernel: max abs error {max(errs):.3g} "
                              f"> {BLEND_ABS_BOUND}")
-    return res, (pre, tiles_x)
+    return res, (pre, tiles_x, pairs, rows)
 
 
 def rel_max(out, ref) -> float:
@@ -342,17 +459,59 @@ def phase_attention_train(torch, dev) -> dict:
         q, k, v, o, do, lse, **kw), 20)
     bwd_plain_ms = cuda_ms(lambda: attention.flash_mha_packed_bwd_ref(
         q, k, v, o, do, lse, **kw), 3)
+    fwd_split = device_ms_by_kernel(torch, lambda: attention.flash_mha_packed(
+        q, k, v, with_stats=True, **kw))
+    bwd_split = device_ms_by_kernel(torch, lambda: attention
+                                    .flash_mha_packed_bwd(q, k, v, o, do,
+                                                          lse, **kw))
+    # q~ as the wrappers form it: bf16(f32(q) * f32(scale)), bit for bit
+    prescale_exact = torch.equal(
+        attention._prescaled_q(q, 64),
+        (q.float() * (64 ** -0.5 * attention.LOG2E)).to(torch.bfloat16))
+    # Determinism: the backward writes every output once, in a fixed order
+    # (no atomics), so two launches on the same inputs agree bit for bit.
+    g1 = attention.flash_mha_packed_bwd(q, k, v, o, do, lse, **kw)
+    g2 = attention.flash_mha_packed_bwd(q, k, v, o, do, lse, **kw)
+    bit_identical = all(torch.equal(x, y) for x, y in zip(g1, g2))
+    del g1, g2
+    with open(os.path.join(ROOT, "open_diffusiongs_tpu_torch", "csrc",
+                           "flash_attn_bwd.cu")) as f:
+        bwd_source_atomic_free = "atomic" not in f.read().lower()
+    # one PyTorch call per function: SDPA's forward at b = 4, its backward
+    # alone (autograd.grad over a retained graph), and the pair
     q4, k4, v4 = (x.reshape(b, l, 16, 64).transpose(1, 2).detach()
                   .requires_grad_(True) for x in (q, k, v))
     do4 = do.reshape(b, l, 16, 64).transpose(1, 2)
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+    out4 = F.scaled_dot_product_attention(q4, k4, v4)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), 20)
+    del out4
     sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 20)
     res = {"full": full, "ragged_lp4608": ragged,
            "fwd_stats_ms": fwd_ms, "fwd_stats_plain_ms": fwd_plain_ms,
            "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+           "fwd_stats_kernels_ms": fwd_split, "bwd_kernels_ms": bwd_split,
+           "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
            "sdpa_fwd_bwd_ms": sdpa_ms,
+           "fwd_stats_bound": attn_fwd_bound(b, l, l, 16, 64, stats=True),
+           "bwd_bound": attn_bwd_bound(b, l, l, 16, 64),
+           "bwd_bit_identical": bit_identical,
+           "prescaled_q_exact": prescale_exact,
+           "bwd_source_atomic_free": bwd_source_atomic_free,
            "shape": f"b={b} L={l} h=16 dh=64 bf16, fused qkv"}
     print(f"[6 attention training kernels] {json.dumps(res)}", flush=True)
+    if not bit_identical:
+        raise AssertionError("attention backward: dq/dk/dv differ between "
+                             "two launches on the same inputs")
+    if not prescale_exact:
+        raise AssertionError("q~ on the card differs from bf16(f32(q) * "
+                             "f32(scale))")
+    if not bwd_source_atomic_free:
+        raise AssertionError("csrc/flash_attn_bwd.cu uses atomics")
     for case, r in (("L=4098", full), ("ragged Lp=4608", ragged)):
         checks = [("o rel-max", r["o_rel_max"], ATTN_REL_BOUND),
                   ("lse max abs", r["lse_max_abs"], LSE_ABS_BOUND)]
@@ -379,7 +538,7 @@ def phase_blend_bwd(torch, dev, system, view) -> dict:
     its plain twin, and the table gradient through BlendTiles twice."""
     from open_diffusiongs_tpu_torch.ops import blend_kernel
     from open_diffusiongs_tpu_torch.ops import rasterize as rz
-    pre, tiles_x = view
+    pre, tiles_x, pairs, rows = view     # phase 4's walk: the same bins
     bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, system.cfg.raster,
                                 grad_map=True)
     packed = rz.pack_rows(pre).detach()
@@ -413,7 +572,14 @@ def phase_blend_bwd(torch, dev, system, view) -> dict:
     d1, d2 = table_grad(), table_grad()
     ms = cuda_ms(lambda: blend_kernel.blend_bwd(*args), 20)
     plain_ms = cuda_ms(lambda: blend_kernel.blend_bwd_ref(*args), 1)
+    n_tiles, k = bins.idx.shape
+    # candidate rows and indices, counts, 10 f32 of forward outputs and
+    # cotangents per pixel read; dg [T, K, 10] f32 written
+    nbytes = (rows * 44 + n_tiles * 4 + n_tiles * 256 * 10 * 4
+              + n_tiles * k * 10 * 4)
     res = {"max_abs_err": float(err.max()),
+           "examined_pairs": pairs, "rows_read": rows,
+           **bound({"f32": pairs * BLEND_BWD_OPS_PER_PAIR}, nbytes),
            "max_ref": float(ref.abs().max()),
            "rel_max_err": float(err.max() / ref.abs().max()),
            "max_err_minus_rtol_ref": excess,
@@ -616,6 +782,10 @@ def phase_main(torch, dev, system) -> dict:
     return res
 
 
+def roof(res: dict) -> dict:
+    return {"bound_ms": res["bound_ms"], "bound_by": res["bound_by"]}
+
+
 def reset_launches(*modules) -> None:
     """Every launch counter of the given kernel modules to 0."""
     for m in modules:
@@ -657,6 +827,8 @@ def phase_general_kernel(torch, dev) -> dict:
     q, k, v = fused_heads(torch, dev, gen, 1, l, 16, 64)
     ms = cuda_ms(lambda: attention.flash_full_mha(q, k, v), 20)
     plain_ms = cuda_ms(lambda: attention.flash_full_mha_ref(q, k, v), 3)
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v))), 20)
     packed_ms = cuda_ms(lambda: attention.flash_mha_packed(
         *(x.reshape(1, l, -1) for x in (q, k, v)), num_heads=16, l_real=l),
         20)
@@ -665,6 +837,7 @@ def phase_general_kernel(torch, dev) -> dict:
     ms_512 = cuda_ms(lambda: attention.flash_full_mha(q5, k5, v5), 10)
     del q5, k5, v5
     res = {"cases": cases, "ms": ms, "plain_ms": plain_ms,
+           "sdpa_ms": sdpa_ms, **attn_fwd_bound(1, l, l, 16, 64, pv="tf32"),
            "packed_kernel_ms_same_inputs": packed_ms, "ms_L16386": ms_512,
            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
            "timed": f"b=1 L={l} (and {l512}) h=16 d=64 bf16, fused qkv; "
@@ -691,9 +864,12 @@ def phase_smax(torch, dev) -> dict:
                        3)
     row_ms = cuda_ms(lambda: attention.flash_mha_packed(
         q, k, v, num_heads=16, l_real=l), 20)
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *(x.reshape(1, l, 16, 64).transpose(1, 2) for x in (q, k, v))), 20)
     res = {"max_abs_err": max(err, err_r), "rel_max_err": rel,
            "ragged_rel_max_err": rel_r, "ms": ms, "plain_ms": plain_ms,
-           "row_max_kernel_ms": row_ms,
+           "row_max_kernel_ms": row_ms, "sdpa_ms": sdpa_ms,
+           **attn_fwd_bound(1, l, l, 16, 64),
            "shape": f"b=1 L={l} h=16 dh=64 bf16, fused qkv"}
     print(f"[9b scalar-max forward] {json.dumps(res)}", flush=True)
     for name, r in (("L=4098", rel), ("ragged Lp=4608", rel_r)):
@@ -822,8 +998,13 @@ def phase_bench_variants(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     qs, k, v, _ = bench_attn._qkv(gen, dev, 16, l, l)
     plain_ms = cuda_ms(lambda: attention.mha_full_ref(qs, k, v, l_real=l), 3)
+    # q is pre-scaled for the base-2 softmax; SDPA at scale 1 does the same
+    # products on the same inputs
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs[None], k[None], v[None], scale=1.0), 20)
     res = {"check": check, "sweep": sweep, "launches": launches,
-           "plain_ms": plain_ms,
+           "plain_ms": plain_ms, "sdpa_ms": sdpa_ms,
+           **attn_fwd_bound(1, l, l, 16, 64),
            "shape": f"h=16 L={l} d=64 bf16 (check: L=700 padded to 1024)"}
     print(f"[9e bench variants] {json.dumps(res)}", flush=True)
     for name, (pv_f32, score_bf16) in bench_attn.VARIANTS.items():
@@ -874,6 +1055,41 @@ def phase_dh16(torch, dev) -> dict:
     return res
 
 
+# 9g: (b, l_real, Lp, heads, dh) off the main path's tiling: fewer keys than
+# one tile, ragged last tiles, a 64-row q tile past Lp, dh 32
+ODD_SHAPES = ((1, 300, 300, 2, 64), (2, 1000, 1090, 4, 32),
+              (1, 70, 130, 3, 64), (2, 200, 333, 2, 16), (1, 129, 260, 2, 64))
+
+
+def phase_odd_shapes(torch, dev) -> dict:
+    """9g: the packed kernels (forward with and without lse, scalar max,
+    backward) at ODD_SHAPES, phase 6's bounds."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {}
+    for b, l, lp, h, dh in ODD_SHAPES:
+        name = f"b={b} L={l} Lp={lp} h={h} dh={dh}"
+        r, _ = attention_train_case(torch, dev, gen, l, lp, h=h, dh=dh, b=b,
+                                    plain_fwd=True)
+        _, r["smax_rel_max"], _, _ = attention_case(
+            torch, dev, gen, b, l, lp, h, dh, fused=True, scalar_max=True)
+        res[name] = r
+        checks = [(n, r[n], ATTN_REL_BOUND)
+                  for n in ("o_rel_max", "o_plain_rel_max", "smax_rel_max")]
+        checks += [("lse_max_abs", r["lse_max_abs"], LSE_ABS_BOUND)]
+        checks += [(f"{n}_rel_max", r[f"{n}_rel_max"], GRAD_REL_BOUND)
+                   for n in ("dq", "dk", "dv")]
+        for what, val, bound in checks:
+            if not val <= bound:
+                raise AssertionError(f"packed kernels {name}: {what} "
+                                     f"{val:.3g} > {bound}")
+        for n in ("lse", "dq", "dk", "dv"):
+            if not r[f"{n}_pad_zero"]:
+                raise AssertionError(f"packed kernels {name}: {n} pad rows "
+                                     f"are not exactly 0")
+    print(f"[9g packed odd shapes] {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -906,6 +1122,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench = phase_bench_variants(torch, dev)
     phase_dh16(torch, dev)
+    phase_odd_shapes(torch, dev)
 
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "flax", "optax", "orbax")
@@ -921,44 +1138,52 @@ def main() -> int:
          "replaces": "open_diffusiongs_tpu/ops/attention.py:221",
          "launches": main_res["launches"]["attention"],
          "max_abs_err": attn["max_abs_err"], "ms": attn["ms"],
-         "plain_ms": attn["plain_ms"]},
+         "plain_ms": attn["plain_ms"], **roof(attn),
+         "library_ms": attn["sdpa_ms"]},
         {"name": "blend_tiles", "route": "cuda",
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
          "launches": main_res["launches"]["blend"],
          "max_abs_err": blend["max_abs_err"], "ms": blend["ms"],
-         "plain_ms": blend["plain_ms"]},
+         "plain_ms": blend["plain_ms"], **roof(blend), "library_ms": None},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
          "launches": train["launches"]["attention_fwd_lse"],
          "max_abs_err": attn_train["max_abs_err_fwd"],
          "ms": attn_train["fwd_stats_ms"],
-         "plain_ms": attn_train["fwd_stats_plain_ms"]},
+         "plain_ms": attn_train["fwd_stats_plain_ms"],
+         **roof(attn_train["fwd_stats_bound"]),
+         "library_ms": attn_train["sdpa_fwd_ms"]},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
          "launches": train["launches"]["attention_bwd"],
          "max_abs_err": attn_train["max_abs_err_bwd"],
-         "ms": attn_train["bwd_ms"], "plain_ms": attn_train["bwd_plain_ms"]},
+         "ms": attn_train["bwd_ms"], "plain_ms": attn_train["bwd_plain_ms"],
+         **roof(attn_train["bwd_bound"]),
+         "library_ms": attn_train["sdpa_bwd_ms"]},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
          "launches": train["launches"]["blend_bwd"],
          "max_abs_err": blend_bwd["max_abs_err"], "ms": blend_bwd["ms"],
-         "plain_ms": blend_bwd["plain_ms"]},
+         "plain_ms": blend_bwd["plain_ms"], **roof(blend_bwd),
+         "library_ms": None},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",
          "launches": general_sampling["launches"]["LAUNCHES_FULL"],
          "max_abs_err": general["max_abs_err"], "ms": general["ms"],
-         "plain_ms": general["plain_ms"]},
+         "plain_ms": general["plain_ms"], **roof(general),
+         "library_ms": general["sdpa_ms"]},
         {"name": "flash_mha_packed(scalar_max=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:146",
          "launches": bench["launches"]["LAUNCHES_SMAX"],
          "max_abs_err": smax["max_abs_err"], "ms": smax["ms"],
-         "plain_ms": smax["plain_ms"]},
+         "plain_ms": smax["plain_ms"], **roof(smax),
+         "library_ms": smax["sdpa_ms"]},
         {"name": "mha_full", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "tools/bench_attn2.py:43",
@@ -966,7 +1191,8 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for n, r in
                             bench["check"].items() if n.startswith("mha")),
          "ms": bench["sweep"]["mha_full"]["ms"],
-         "plain_ms": bench["plain_ms"]},
+         "plain_ms": bench["plain_ms"], **roof(bench),
+         "library_ms": bench["sdpa_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -10,385 +10,528 @@
 //   dq = (dh^-1/2) * dS . K,  dk = ln2 * dS^T . q~,  dv = P^T . dO
 // f32 accumulation; P and dS are rounded to bf16 as the tensor cores' A
 // operand (the TPU kernels cast them to the input dtype the same way).
-// Keys >= l_real are excluded (zeroed K/V rows, P forced to 0); q rows
-// >= l_real contribute nothing (zeroed q~/dO rows, P and dS forced to 0);
-// every output row >= l_real is written as exactly 0.
+// Keys >= l_real are excluded (TMA reads their K/V rows as 0, P forced to
+// 0); q rows >= l_real contribute nothing (TMA reads their q~/dO rows as 0,
+// P and dS forced to 0); every output row >= l_real is written as exactly 0.
+// The caller forms q~ once (ops/attention.py, the `_prescaled_q` rule), so
+// TMA reads it as it is.
+//
+// What bounds it: at the train path's shape (b = 4, L = 4098, h = 16,
+// dh = 64) the pair runs 7 products of 2·L²·dh per head (S and dP in both
+// kernels, then dQ, dK, dV), ≈ 963 GFLOP executed, 5 of them (≈ 688
+// GFLOP, 0.70 ms at 989 TFLOP/s bf16) the least the function needs; its
+// ≈ 1.07e9 exp2 (both kernels rebuild P) take ≈ 0.27 ms on the SFUs.
+// Bound by tensor-core throughput.
 //
 // Design: the TPU's two-kernel split, which keeps the backward
-// deterministic without atomics:
-//   * dQ kernel: one 128-thread block per (64-row q tile, head, batch); the
-//     q~ and dO tiles stay in registers (4 warps x 16 rows), 64-key K/V
-//     tiles stream through shared memory (K both row-major, for q~.K^T,
-//     and transposed, for dS.K);
-//   * dK/dV kernel: one block per (64-key tile, head, batch); the K and V
-//     tiles stay in registers, 64-row q~/dO tiles (row-major and
-//     transposed) plus their lse/delta stream through shared memory.  It
-//     works in the transposed orientation S^T = K.q~^T (rows = keys), so
-//     the accumulators of P^T and dS^T are directly the A fragments of
-//     P^T.dO and dS^T.q~.
-// All products are mma.sync m16n8k16 (bf16 in, f32 accumulate); the
-// accumulator of two adjacent n8 tiles is the A fragment of the next mma,
-// so P and dS never leave registers.
-//
-// Inputs q/k/v may be column slices of one fused qkv projection, and the
+// deterministic with plain stores (no output element is written by more than
+// one thread, every sum runs in a fixed order), each kernel with
+// FlashAttention-3's warp-specialised shape:
+//   * one producer warpgroup (one thread issues TMA; setmaxnreg 40) and
+//     two consumer warpgroups of 64 rows each (setmaxnreg 232);
+//   * the block's resident tiles are loaded once, the streamed 64-row tiles
+//     run through a ring of NSTAGE stages with full / empty mbarriers;
+//     the tensor maps are those of the forward (3-D {h*dh, rows, b}, row
+//     extent l_real, swizzle = the row's width), plus 2-D maps of lse and
+//     delta laid out [b*h, pitch] so a q tile's 64 values are one box;
+//   * every operand orientation comes from wgmma's transpose bit, never
+//     from a transposed copy in shared memory:
+//       dQ kernel (q~ and dO resident, K/V streamed):
+//         S = q~.K^T and dP = dO.V^T, A = q~ / dO (loaded once from the
+//         resident tiles into registers), B = K / V (K-major);
+//         dQ += dS.K, dS from registers as A, K read MN-major;
+//       dK/dV kernel (K and V resident, q~/dO/lse/delta streamed):
+//         S^T = K.q~^T and dP^T = V.dO^T, A = K / V, B = q~ / dO (K-major);
+//         dV += P^T.dO and dK += dS^T.q~, P^T and dS^T straight from the
+//         accumulators as register A, dO and q~ read MN-major.
+//   * Overlap, within each warpgroup: at streamed tile j it issues tile
+//     j+1's two score products and then tile j's accumulating products
+//     (dQ, or dV and dK) as two commit groups, waits for the scores only,
+//     and rebuilds P and dS of tile j+1 (the exp2 work) while tile j's
+//     products still run; P / dS fragments are double-buffered for that.
+//     The two consumer warpgroups run independently, so one's exp2 work
+//     also overlaps the other's products.
+// Inputs q~/k/v may be column slices of one fused qkv projection, and the
 // outputs dq/dk/dv column slices of one fused [b, Lp, 3*h*dh] gradient:
 // each is addressed by its own batch and row strides.
-//
-// What bounds it: at the 256^2 flagship shape (L = 4098, h = 16, dh = 64)
-// the pair runs 7 products of 2*L^2*dh per head (S and dP in both
-// kernels, then dQ, dK, dV), ~241 GFLOP on ~50 MB of operands per batch
-// element: bound by tensor-core throughput.  Like
-// the forward, this first version has no cp.async/TMA pipelining, uses
-// mma.sync instead of wgmma, and transposes tiles through bank-conflicted
-// shared-memory stores; making it fast is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;          // q rows per tile (4 warps x 16)
-constexpr int BK = 64;          // keys per tile (4 warps x 16)
-constexpr int NTHREADS = 128;
+using namespace odgs;
+
+constexpr int WG = 128;          // threads per warpgroup
+constexpr int ROWS = 64;         // rows per consumer warpgroup = tile rows
+constexpr int BLOCK = 2 * ROWS;  // resident rows per block
+constexpr int NSTAGE = 3;
+constexpr int NTHREADS = 3 * WG; // consumers 0 and 1, producer 2
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
+// Rows of the [b*h, pitch] f32 lse / delta layout: a multiple of 4, so a
+// row starts 16-byte aligned for TMA (ops/attention.py::stats_pitch).
+__host__ __device__ inline int stats_pitch(int lp) { return (lp + 3) / 4 * 4; }
+
+struct BwdParams {
+  CUtensorMap tq, tdo, tk, tv;   // boxes of [ROWS, dh], rows < l_real
+  CUtensorMap tlse, tdlt;        // boxes of [1, ROWS], columns < l_real
+  const float *lse, *delta;      // [b*h, pitch] f32
+  __nv_bfloat16 *dq, *dk, *dv;
+  int lp, h, l_real, pitch;
+  float dq_scale;                // dh^-1/2
+  long long dq_sb, dq_sl, dk_sb, dk_sl, dv_sb, dv_sl;
+};
+
+template <int DH>
+struct DqSmem {
+  alignas(1024) __nv_bfloat16 q[BLOCK * DH];     // q~, resident
+  alignas(1024) __nv_bfloat16 d[BLOCK * DH];     // dO, resident
+  alignas(1024) __nv_bfloat16 k[NSTAGE][ROWS * DH];
+  alignas(1024) __nv_bfloat16 v[NSTAGE][ROWS * DH];
+  uint64_t full[NSTAGE], empty[NSTAGE], res;
+};
+
+template <int DH>
+struct DkvSmem {
+  alignas(1024) __nv_bfloat16 k[BLOCK * DH];     // resident
+  alignas(1024) __nv_bfloat16 v[BLOCK * DH];     // resident
+  alignas(1024) __nv_bfloat16 q[NSTAGE][ROWS * DH];
+  alignas(1024) __nv_bfloat16 d[NSTAGE][ROWS * DH];
+  alignas(128) float lse[NSTAGE][ROWS];
+  alignas(128) float dlt[NSTAGE][ROWS];
+  uint64_t full[NSTAGE], empty[NSTAGE], res;
+};
+
+// Element e of n8 tile n of a 64-column accumulator sits in A fragment
+// [n / 2][2 * (n % 2) + e / 2] of the k16 steps (the pair e, e + 1 packed):
+// the mma.sync C layout of two adjacent n8 tiles is the A layout of one k16.
+__device__ __forceinline__ uint32_t& frag_of(uint32_t (&f)[ROWS / 16][4],
+                                            int n, int e) {
+  return f[n / 2][2 * (n % 2) + e / 2];
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 16-byte chunk (8 values) of row `row` of a [rows, DH] head slice;
-// zero when row >= valid.  `scale` != 0 pre-scales and re-rounds (q~).
-__device__ __forceinline__ uint4 load_chunk(const __nv_bfloat16* base,
-                                            long long row_stride, int row,
-                                            int valid, int c8, float scale) {
-  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-  if (row < valid) {
-    raw = *reinterpret_cast<const uint4*>(base + (long long)row * row_stride + c8);
-    if (scale != 0.f) {
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p2[i]);
-        p2[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-    }
-  }
-  return raw;
-}
-
-// Store one chunk row-major ([r][c8..c8+7], row pitch LD) and, optionally,
-// transposed ([c8+i][r], row pitch LDT).
-template <int LD, int LDT>
-__device__ __forceinline__ void store_chunk(__nv_bfloat16* rowmajor,
-                                            __nv_bfloat16* transposed, int r,
-                                            int c8, uint4 raw) {
-  if (rowmajor != nullptr)
-    *reinterpret_cast<uint4*>(&rowmajor[r * LD + c8]) = raw;
-  if (transposed != nullptr) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) transposed[(c8 + i) * LDT + r] = e[i];
-  }
-}
-
-// A fragments (16 rows x DH) of this warp's rows from a row-major tile.
-template <int DH, int LD>
-__device__ __forceinline__ void load_a_frags(const __nv_bfloat16* tile,
-                                             int warp, int g, int t4,
-                                             uint32_t (&f)[DH / 16][4]) {
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    f[kk][0] = ld32(&tile[r0 * LD + c]);
-    f[kk][1] = ld32(&tile[(r0 + 8) * LD + c]);
-    f[kk][2] = ld32(&tile[r0 * LD + c + 8]);
-    f[kk][3] = ld32(&tile[(r0 + 8) * LD + c + 8]);
-  }
-}
-
-// acc[n-tile][4] = A(this warp's 16 rows x DH) . Bt^T where Bt is a
-// row-major [64, DH] tile (rows = the 64 output columns).
-template <int DH, int LD>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[DH / 16][4],
-                                        const __nv_bfloat16* bt, int g,
-                                        int t4) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* p = &bt[(nt * 8 + g) * LD + kk * 16 + 2 * t4];
-      mma16816(acc[nt], a[kk], ld32(p), ld32(p + 8));
-    }
-}
-
-// out[d-tile][4] += X(16 rows x 64, as accumulator fragments) . Y where
-// Yt is Y^T stored row-major [DH, 64] (pitch LDT): X's fragments of two
-// adjacent n8 tiles form the A fragment of one k16 step.
-template <int DH, int LDT>
-__device__ __forceinline__ void mma_xy(float (&out)[DH / 8][4],
-                                       const float (&x)[8][4],
-                                       const __nv_bfloat16* yt, int g,
-                                       int t4) {
-#pragma unroll
-  for (int kj = 0; kj < 4; ++kj) {
-    const uint32_t a[4] = {pack_bf16x2(x[2 * kj][0], x[2 * kj][1]),
-                           pack_bf16x2(x[2 * kj][2], x[2 * kj][3]),
-                           pack_bf16x2(x[2 * kj + 1][0], x[2 * kj + 1][1]),
-                           pack_bf16x2(x[2 * kj + 1][2], x[2 * kj + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      const __nv_bfloat16* p = &yt[(dt * 8 + g) * LDT + kj * 16 + 2 * t4];
-      mma16816(out[dt], a, ld32(p), ld32(p + 8));
-    }
-  }
-}
-
-// Write this warp's 16 output rows (rows >= l_real as 0, rows >= lp
-// skipped), scaled.
+// Write this thread's rows row0, row0 + 8 of a [64, DH] accumulator, scaled
+// (rows >= l_real as 0, rows >= lp skipped).
 template <int DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sl,
                                            int row0, int lp, int l_real,
-                                           const float (&acc)[DH / 8][4],
+                                           const float (&acc)[DH / 2],
                                            float scale, int t4) {
 #pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int c = dt * 8 + 2 * t4;
+  for (int n = 0; n < DH / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = row0 + 8 * half;
       if (r >= lp) continue;
       const bool real = r < l_real;
       *reinterpret_cast<uint32_t*>(out + (long long)r * sl + c) =
-          pack_bf16x2(real ? acc[dt][2 * half] * scale : 0.f,
-                      real ? acc[dt][2 * half + 1] * scale : 0.f);
+          pack_bf16x2(real ? acc[4 * n + 2 * half] * scale : 0.f,
+                      real ? acc[4 * n + 2 * half + 1] * scale : 0.f);
     }
   }
 }
 
-struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
-  const float *lse, *delta;      // [b, lp, h] f32, contiguous
-  __nv_bfloat16 *dq, *dk, *dv;
-  int lp, h, l_real;
-  float scale;                   // dh^-1/2 * log2 e (the forward's)
-  long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb, do_sl;
-  long long dq_sb, dq_sl, dk_sb, dk_sl, dv_sb, dv_sl;
-};
+template <int DH>
+__device__ __forceinline__ void zero_acc(float (&acc)[DH / 2]) {
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block per (128 q rows, head, batch).
+// ---------------------------------------------------------------------------
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Args a) {
-  constexpr int LD = DH + 8;       // padded row-major row
-  constexpr int LDT = BK + 8;      // padded transposed row
-  constexpr int CPR = DH / 8;      // 16-byte chunks per head row
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * LD];   // q~, then dO
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 kt[DH * LDT];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, bi = blockIdx.z;
-  const int col0 = head * DH;
-  const __nv_bfloat16* qb = a.q + bi * a.q_sb + col0 + q0 * a.q_sl;
-  const __nv_bfloat16* db = a.dout + bi * a.do_sb + col0 + q0 * a.do_sl;
-  const __nv_bfloat16* kb = a.k + bi * a.k_sb + col0;
-  const __nv_bfloat16* vb = a.v + bi * a.v_sb + col0;
-  const int rows_here = min(a.l_real - q0, BQ);   // real rows in this tile
-
-  // q~ (rows >= l_real zero) -> registers, then dO -> registers.
-  uint32_t qf[DH / 16][4], df[DH / 16][4];
-  for (int c = tid; c < BQ * CPR; c += NTHREADS) {
-    const int r = c / CPR, c8 = (c % CPR) * 8;
-    store_chunk<LD, LDT>(qs, nullptr, r, c8,
-                         load_chunk(qb, a.q_sl, r, rows_here, c8, a.scale));
-  }
-  __syncthreads();
-  load_a_frags<DH, LD>(qs, warp, g, t4, qf);
-  __syncthreads();
-  for (int c = tid; c < BQ * CPR; c += NTHREADS) {
-    const int r = c / CPR, c8 = (c % CPR) * 8;
-    store_chunk<LD, LDT>(qs, nullptr, r, c8,
-                         load_chunk(db, a.do_sl, r, rows_here, c8, 0.f));
-  }
-  __syncthreads();
-  load_a_frags<DH, LD>(qs, warp, g, t4, df);
-
-  // This thread's two rows (g and g + 8 of the warp's 16): lse and delta.
-  const int r0 = q0 + warp * 16 + g;
+__device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
+                                            int wg, int q0, int head, int bi,
+                                            int n_kt) {
+  constexpr int KSTEPS = DH / 16;
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + wg * ROWS + warp * 16 + g;   // rows r0 and r0 + 8
   float lse_r[2], dlt_r[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
-    const long long o = ((long long)bi * a.lp + r) * a.h + head;
-    lse_r[half] = r < a.l_real ? a.lse[o] : 0.f;
-    dlt_r[half] = r < a.l_real ? a.delta[o] : 0.f;
+    const long long o = (long long)(bi * p.h + head) * p.pitch + r;
+    lse_r[half] = r < p.l_real ? p.lse[o] : 0.f;
+    dlt_r[half] = r < p.l_real ? p.delta[o] : 0.f;
   }
+  const bool real_r[2] = {r0 < p.l_real, r0 + 8 < p.l_real};
+  float dq[DH / 2], sacc[ROWS / 2], pacc[ROWS / 2];
+  typedef uint32_t Frags[ROWS / 16][4];
+  Frags ds0, ds1;   // dS of two tiles
+  uint32_t qf[KSTEPS][4], df[KSTEPS][4];   // q~ and dO as register A
+  zero_acc<DH>(dq);
 
-  float acc[DH / 8][4];
+  auto wait_full = [&](int j) {
+    mbar_wait(&s.full[j % NSTAGE], (j / NSTAGE) & 1);
+  };
+  auto issue_scores = [&](int j) {   // S = q~ . K^T, dP = dO . V^T
+    const int st = j % NSTAGE;
+    const uint64_t kd = make_desc<DH>(s.k[st]), vd = make_desc<DH>(s.v[st]);
 #pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt)
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      Wgmma<ROWS>::template rs<0>(sacc, qf[kk], desc_add(kd, kk * 32),
+                                  kk > 0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dt][j] = 0.f;
-
-  const int n_kt = rows_here > 0 ? (a.l_real + BK - 1) / BK : 0;
-  for (int kt_i = 0; kt_i < n_kt; ++kt_i) {
-    const int k0 = kt_i * BK;
-    __syncthreads();   // every warp is done with the previous K/V tile
-    for (int c = tid; c < BK * CPR; c += NTHREADS) {
-      const int r = c / CPR, c8 = (c % CPR) * 8;
-      const int valid = a.l_real - k0;
-      store_chunk<LD, LDT>(ks, kt, r, c8,
-                           load_chunk(kb + k0 * a.k_sl, a.k_sl, r, valid, c8, 0.f));
-      store_chunk<LD, LDT>(vs, nullptr, r, c8,
-                           load_chunk(vb + k0 * a.v_sl, a.v_sl, r, valid, c8, 0.f));
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt<DH, LD>(s, qf, ks, g, t4);    // S  = q~ . K^T
-    mma_abt<DH, LD>(dp, df, vs, g, t4);   // dP = dO . V^T
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      Wgmma<ROWS>::template rs<0>(pacc, df[kk], desc_add(vd, kk * 32),
+                                  kk > 0);
+    wgmma_commit();
+  };
+  auto issue_grad = [&](int j, const Frags& dsf) {
+    const uint64_t kd = make_desc<DH>(s.k[j % NSTAGE]);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int kj = 0; kj < ROWS / 16; ++kj)   // dQ += dS . K (K MN-major)
+      Wgmma<DH>::template rs<1>(dq, dsf[kj],
+                                desc_add(kd, kj * 16 * DH * 2), 1);
+    wgmma_commit();
+  };
+  auto make_ds = [&](int j, Frags& dsf) {
+    fence_regs(sacc);
+    fence_regs(pacc);
+    const int k0 = j * ROWS;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + nt * 8 + 2 * t4 + (j & 1);
-        const int half = j >> 1;
-        const float p = key < a.l_real ? exp2f(s[nt][j] - lse_r[half]) : 0.f;
-        s[nt][j] = p * (dp[nt][j] - dlt_r[half]);            // dS
+    for (int n = 0; n < ROWS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int key = k0 + 8 * n + 2 * t4, half = e / 2;
+        float ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          // exp2(-inf) = 0 drops the pad keys and rows without a branch
+          const float pv = exp2f((key + c < p.l_real && real_r[half])
+                                     ? sacc[4 * n + e + c] - lse_r[half]
+                                     : -INFINITY);
+          ds[c] = pv * (pacc[4 * n + e + c] - dlt_r[half]);
+        }
+        frag_of(dsf, n, e) = pack_bf16x2(ds[0], ds[1]);
       }
-    mma_xy<DH, LDT>(acc, s, kt, g, t4);   // dQ += dS . K
+  };
+  // Tile j+1's score products run ahead of tile j's dQ product, so the
+  // exp2 work of j+1 overlaps dQ += dS_j . K_j on the tensor cores.
+  auto step = [&](int j, const Frags& cur, Frags& nxt) {   // j + 1 < n_kt
+    wait_full(j + 1);
+    wgmma_fence();
+    issue_scores(j + 1);
+    issue_grad(j, cur);
+    wgmma_wait<1>();
+    if (j > 0 && tid == 0) mbar_arrive(&s.empty[(j - 1) % NSTAGE]);
+    make_ds(j + 1, nxt);
+  };
+  auto last = [&](int j, const Frags& cur) {
+    wgmma_fence();
+    issue_grad(j, cur);
+    wgmma_wait<0>();
+  };
+
+  mbar_wait(&s.res, 0);
+  load_a_frags<DH>(s.q, wg * ROWS + warp * 16 + g, t4, qf);
+  load_a_frags<DH>(s.d, wg * ROWS + warp * 16 + g, t4, df);
+  wait_full(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  make_ds(0, ds0);
+  int j = 0;
+  for (; j + 2 < n_kt; j += 2) {
+    step(j, ds0, ds1);
+    step(j + 1, ds1, ds0);
   }
-  store_rows<DH>(a.dq + bi * a.dq_sb + col0, a.dq_sl, r0, a.lp, a.l_real, acc,
-                 a.scale * LN2, t4);
+  if (j + 1 < n_kt) {
+    step(j, ds0, ds1);
+    last(j + 1, ds1);
+  } else {
+    last(j, ds0);
+  }
+  fence_regs(dq);
+  store_rows<DH>(p.dq + bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
+                 p.l_real, dq, p.dq_scale, t4);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Args a) {
-  constexpr int LD = DH + 8;
-  constexpr int LDT = BQ + 8;
-  constexpr int CPR = DH / 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * LD];    // q~ row-major
-  __shared__ __align__(16) __nv_bfloat16 qt[DH * LDT];   // q~ transposed
-  __shared__ __align__(16) __nv_bfloat16 ds[BQ * LD];    // dO row-major
-  __shared__ __align__(16) __nv_bfloat16 dt_[DH * LDT];  // dO transposed
-  __shared__ float lse_s[BQ], dlt_s[BQ];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * BK, head = blockIdx.y, bi = blockIdx.z;
-  const int col0 = head * DH;
-  const __nv_bfloat16* qb = a.q + bi * a.q_sb + col0;
-  const __nv_bfloat16* db = a.dout + bi * a.do_sb + col0;
-  const int keys_here = min(a.l_real - k0, BK);
-
-  // K and V tiles of this block's keys (rows >= l_real zero) -> registers,
-  // staged through the q~ / dO buffers.
-  uint32_t kf[DH / 16][4], vf[DH / 16][4];
-  for (int c = tid; c < BK * CPR; c += NTHREADS) {
-    const int r = c / CPR, c8 = (c % CPR) * 8;
-    store_chunk<LD, LDT>(qs, nullptr, r, c8,
-                         load_chunk(a.k + bi * a.k_sb + col0 + k0 * a.k_sl,
-                                    a.k_sl, r, keys_here, c8, 0.f));
-    store_chunk<LD, LDT>(ds, nullptr, r, c8,
-                         load_chunk(a.v + bi * a.v_sb + col0 + k0 * a.v_sl,
-                                    a.v_sl, r, keys_here, c8, 0.f));
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  DqSmem<DH>& s = smem_storage<DqSmem<DH>>(smem_raw);
+  const int q0 = blockIdx.x * BLOCK, head = blockIdx.y, bi = blockIdx.z;
+  const int wg = threadIdx.x / WG;
+  // consumers whose rows hold a real q row; the others only write zeros
+  const int n_active = q0 >= p.l_real ? 0 : q0 + ROWS < p.l_real ? 2 : 1;
+  const int n_kt = n_active > 0 ? (p.l_real + ROWS - 1) / ROWS : 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], n_active > 0 ? n_active : 1);
+    }
+    mbar_init(&s.res, 1);
+    mbar_init_fence();
   }
   __syncthreads();
-  load_a_frags<DH, LD>(qs, warp, g, t4, kf);
-  load_a_frags<DH, LD>(ds, warp, g, t4, vf);
-
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
-
-  const int n_qt = keys_here > 0 ? (a.l_real + BQ - 1) / BQ : 0;
-  for (int qt_i = 0; qt_i < n_qt; ++qt_i) {
-    const int q0 = qt_i * BQ;
-    const int valid = a.l_real - q0;
-    __syncthreads();   // every warp is done with the previous q~/dO tile
-    for (int c = tid; c < BQ * CPR; c += NTHREADS) {
-      const int r = c / CPR, c8 = (c % CPR) * 8;
-      store_chunk<LD, LDT>(qs, qt, r, c8,
-                           load_chunk(qb + q0 * a.q_sl, a.q_sl, r, valid, c8,
-                                      a.scale));
-      store_chunk<LD, LDT>(ds, dt_, r, c8,
-                           load_chunk(db + q0 * a.do_sl, a.do_sl, r, valid, c8,
-                                      0.f));
-    }
-    if (tid < BQ) {
-      const int r = q0 + tid;
-      const long long o = ((long long)bi * a.lp + r) * a.h + head;
-      lse_s[tid] = r < a.l_real ? a.lse[o] : 0.f;
-      dlt_s[tid] = r < a.l_real ? a.delta[o] : 0.f;
-    }
-    __syncthreads();
-
-    float p[8][4], dsc[8][4];
-    mma_abt<DH, LD>(p, kf, qs, g, t4);     // S^T  = K . q~^T
-    mma_abt<DH, LD>(dsc, vf, ds, g, t4);   // dP^T = V . dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = nt * 8 + 2 * t4 + (j & 1);    // q row in the tile
-        const bool real = q0 + col < a.l_real;
-        const float pv = real ? exp2f(p[nt][j] - lse_s[col]) : 0.f;
-        p[nt][j] = pv;
-        dsc[nt][j] = real ? pv * (dsc[nt][j] - dlt_s[col]) : 0.f;
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * WG && n_active > 0) {
+      mbar_expect_tx(&s.res, 2 * BLOCK * DH * 2);
+      for (int r = 0; r < BLOCK; r += ROWS) {
+        tma_load_3d(s.q + r * DH, &p.tq, &s.res, head * DH, q0 + r, bi);
+        tma_load_3d(s.d + r * DH, &p.tdo, &s.res, head * DH, q0 + r, bi);
       }
-    mma_xy<DH, LDT>(dv, p, dt_, g, t4);    // dV += P^T . dO
-    mma_xy<DH, LDT>(dk, dsc, qt, g, t4);   // dK += dS^T . q~
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % NSTAGE;
+        mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], 2 * ROWS * DH * 2);
+        tma_load_3d(s.k[st], &p.tk, &s.full[st], head * DH, j * ROWS, bi);
+        tma_load_3d(s.v[st], &p.tv, &s.full[st], head * DH, j * ROWS, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    if (wg < n_active) {
+      dq_consumer<DH>(p, s, wg, q0, head, bi, n_kt);
+    } else {   // every row of this warpgroup is >= l_real: write zeros
+      const int tid = threadIdx.x % WG;
+      const int r0 = q0 + wg * ROWS + (tid / 32) * 16 + (tid % 32) / 4;
+      float zero[DH / 2];
+      zero_acc<DH>(zero);
+      store_rows<DH>(p.dq + bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
+                     p.l_real, zero, 0.f, tid % 4);
+    }
   }
-  const int row0 = k0 + warp * 16 + g;
-  store_rows<DH>(a.dk + bi * a.dk_sb + col0, a.dk_sl, row0, a.lp, a.l_real,
-                 dk, LN2, t4);
-  store_rows<DH>(a.dv + bi * a.dv_sb + col0, a.dv_sl, row0, a.lp, a.l_real,
-                 dv, 1.f, t4);
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV: one block per (128 keys, head, batch), in the transposed
+// orientation (rows = keys).
+// ---------------------------------------------------------------------------
+
+template <int DH>
+__device__ __forceinline__ void dkv_consumer(const BwdParams& p,
+                                             DkvSmem<DH>& s, int wg, int k0,
+                                             int head, int bi, int n_qt) {
+  constexpr int KSTEPS = DH / 16;
+  typedef uint32_t Frags[ROWS / 16][4];
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = k0 + wg * ROWS + warp * 16 + g;   // keys r0 and r0 + 8
+  float dk[DH / 2], dv[DH / 2], sacc[ROWS / 2], pacc[ROWS / 2];
+  Frags pf0, ds0, pf1, ds1;   // P^T and dS^T of two tiles
+  zero_acc<DH>(dk);
+  zero_acc<DH>(dv);
+  const uint64_t kd = make_desc<DH>(s.k + wg * ROWS * DH);
+  const uint64_t vd = make_desc<DH>(s.v + wg * ROWS * DH);
+
+  auto wait_full = [&](int j) {
+    mbar_wait(&s.full[j % NSTAGE], (j / NSTAGE) & 1);
+  };
+  auto issue_scores = [&](int j) {   // S^T = K . q~^T, dP^T = V . dO^T
+    const int st = j % NSTAGE;
+    const uint64_t qd = make_desc<DH>(s.q[st]), dd = make_desc<DH>(s.d[st]);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      Wgmma<ROWS>::template ss<0>(sacc, desc_add(kd, kk * 32),
+                                  desc_add(qd, kk * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      Wgmma<ROWS>::template ss<0>(pacc, desc_add(vd, kk * 32),
+                                  desc_add(dd, kk * 32), kk > 0);
+    wgmma_commit();
+  };
+  auto issue_grads = [&](int j, const Frags& pf, const Frags& dsf) {
+    const int st = j % NSTAGE;
+    const uint64_t qd = make_desc<DH>(s.q[st]), dd = make_desc<DH>(s.d[st]);
+#pragma unroll
+    for (int kj = 0; kj < ROWS / 16; ++kj)   // dV += P^T . dO (MN-major)
+      Wgmma<DH>::template rs<1>(dv, pf[kj], desc_add(dd, kj * 16 * DH * 2), 1);
+#pragma unroll
+    for (int kj = 0; kj < ROWS / 16; ++kj)   // dK += dS^T . q~ (MN-major)
+      Wgmma<DH>::template rs<1>(dk, dsf[kj], desc_add(qd, kj * 16 * DH * 2),
+                                1);
+    wgmma_commit();
+  };
+  auto make_frags = [&](int j, Frags& pf, Frags& dsf) {
+    fence_regs(sacc);
+    fence_regs(pacc);
+    const int st = j % NSTAGE, q0 = j * ROWS;
+#pragma unroll
+    for (int n = 0; n < ROWS / 8; ++n) {
+      const int col = 8 * n + 2 * t4;   // q rows col, col + 1 of the tile
+      const float2 lse2 = *reinterpret_cast<const float2*>(&s.lse[st][col]);
+      const float2 dlt2 = *reinterpret_cast<const float2*>(&s.dlt[st][col]);
+      const float lse_c[2] = {lse2.x, lse2.y}, dlt_c[2] = {dlt2.x, dlt2.y};
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        float pv[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          pv[c] = exp2f(q0 + col + c < p.l_real
+                            ? sacc[4 * n + e + c] - lse_c[c] : -INFINITY);
+          ds[c] = pv[c] * (pacc[4 * n + e + c] - dlt_c[c]);   // dS^T
+        }
+        frag_of(pf, n, e) = pack_bf16x2(pv[0], pv[1]);
+        frag_of(dsf, n, e) = pack_bf16x2(ds[0], ds[1]);
+      }
+    }
+  };
+  // Tile j+1's score products run ahead of tile j's dV / dK products, so
+  // the exp2 work of j+1 overlaps them on the tensor cores.
+  auto step = [&](int j, const Frags& pf, const Frags& dsf, Frags& pf_n,
+                  Frags& dsf_n) {   // j + 1 < n_qt
+    wait_full(j + 1);
+    wgmma_fence();
+    issue_scores(j + 1);
+    issue_grads(j, pf, dsf);
+    wgmma_wait<1>();
+    if (j > 0 && tid == 0) mbar_arrive(&s.empty[(j - 1) % NSTAGE]);
+    make_frags(j + 1, pf_n, dsf_n);
+  };
+  auto last = [&](int j, const Frags& pf, const Frags& dsf) {
+    wgmma_fence();
+    issue_grads(j, pf, dsf);
+    wgmma_wait<0>();
+  };
+
+  mbar_wait(&s.res, 0);
+  wait_full(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  make_frags(0, pf0, ds0);
+  int j = 0;
+  for (; j + 2 < n_qt; j += 2) {
+    step(j, pf0, ds0, pf1, ds1);
+    step(j + 1, pf1, ds1, pf0, ds0);
+  }
+  if (j + 1 < n_qt) {
+    step(j, pf0, ds0, pf1, ds1);
+    last(j + 1, pf1, ds1);
+  } else {
+    last(j, pf0, ds0);
+  }
+  fence_regs(dk);
+  fence_regs(dv);
+  store_rows<DH>(p.dk + bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
+                 p.l_real, dk, LN2, t4);
+  store_rows<DH>(p.dv + bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
+                 p.l_real, dv, 1.f, t4);
 }
 
 template <int DH>
-int launch(const Args& a, int b, cudaStream_t stream) {
-  const dim3 grid_q((a.lp + BQ - 1) / BQ, a.h, b);
-  flash_bwd_dq_kernel<DH><<<grid_q, NTHREADS, 0, stream>>>(a);
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  DkvSmem<DH>& s = smem_storage<DkvSmem<DH>>(smem_raw);
+  const int k0 = blockIdx.x * BLOCK, head = blockIdx.y, bi = blockIdx.z;
+  const int wg = threadIdx.x / WG;
+  const int n_active = k0 >= p.l_real ? 0 : k0 + ROWS < p.l_real ? 2 : 1;
+  const int n_qt = n_active > 0 ? (p.l_real + ROWS - 1) / ROWS : 0;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], n_active > 0 ? n_active : 1);
+    }
+    mbar_init(&s.res, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * WG && n_active > 0) {
+      mbar_expect_tx(&s.res, 2 * BLOCK * DH * 2);
+      for (int r = 0; r < BLOCK; r += ROWS) {
+        tma_load_3d(s.k + r * DH, &p.tk, &s.res, head * DH, k0 + r, bi);
+        tma_load_3d(s.v + r * DH, &p.tv, &s.res, head * DH, k0 + r, bi);
+      }
+      const int stats_row = bi * p.h + head;
+      for (int j = 0; j < n_qt; ++j) {
+        const int st = j % NSTAGE;
+        mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], 2 * ROWS * DH * 2 + 2 * ROWS * 4);
+        tma_load_3d(s.q[st], &p.tq, &s.full[st], head * DH, j * ROWS, bi);
+        tma_load_3d(s.d[st], &p.tdo, &s.full[st], head * DH, j * ROWS, bi);
+        tma_load_2d(s.lse[st], &p.tlse, &s.full[st], j * ROWS, stats_row);
+        tma_load_2d(s.dlt[st], &p.tdlt, &s.full[st], j * ROWS, stats_row);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    if (wg < n_active) {
+      dkv_consumer<DH>(p, s, wg, k0, head, bi, n_qt);
+    } else {   // every key of this warpgroup is >= l_real: write zeros
+      const int tid = threadIdx.x % WG;
+      const int r0 = k0 + wg * ROWS + (tid / 32) * 16 + (tid % 32) / 4;
+      float zero[DH / 2];
+      zero_acc<DH>(zero);
+      store_rows<DH>(p.dk + bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
+                     p.l_real, zero, 0.f, tid % 4);
+      store_rows<DH>(p.dv + bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
+                     p.l_real, zero, 0.f, tid % 4);
+    }
+  }
+}
+
+template <typename Smem>
+int set_smem(const void* kern) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<Smem>()));
+}
+
+template <int DH>
+int launch(const BwdParams& p, int b, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    int e = set_smem<DqSmem<DH>>(
+        reinterpret_cast<const void*>(flash_bwd_dq_kernel<DH>));
+    if (e == 0)
+      e = set_smem<DkvSmem<DH>>(
+          reinterpret_cast<const void*>(flash_bwd_dkv_kernel<DH>));
+    if (e != 0) return e;
+    configured = true;
+  }
+  const dim3 grid((p.lp + BLOCK - 1) / BLOCK, p.h, b);
+  flash_bwd_dq_kernel<DH>
+      <<<grid, NTHREADS, smem_bytes<DqSmem<DH>>(), stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid_k((a.lp + BK - 1) / BK, a.h, b);
-  flash_bwd_dkv_kernel<DH><<<grid_k, NTHREADS, 0, stream>>>(a);
+  flash_bwd_dkv_kernel<DH>
+      <<<grid, NTHREADS, smem_bytes<DkvSmem<DH>>(), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int prepare(BwdParams& p, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, int b,
+            long long q_sb, long long q_sl, long long k_sb, long long k_sl,
+            long long v_sb, long long v_sl, long long do_sb, long long do_sl) {
+  const int width = p.h * DH;
+  const bool ok =
+      make_map_bf16<DH>(&p.tq, q, width, p.l_real, b, q_sl, q_sb, ROWS) &&
+      make_map_bf16<DH>(&p.tdo, dout, width, p.l_real, b, do_sl, do_sb,
+                        ROWS) &&
+      make_map_bf16<DH>(&p.tk, k, width, p.l_real, b, k_sl, k_sb, ROWS) &&
+      make_map_bf16<DH>(&p.tv, v, width, p.l_real, b, v_sl, v_sb, ROWS) &&
+      make_map_f32(&p.tlse, lse, p.l_real, p.pitch, b * p.h, ROWS) &&
+      make_map_f32(&p.tdlt, delta, p.l_real, p.pitch, b * p.h, ROWS);
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Launch both kernels on `stream`; returns the first failing launch's
-// cudaError_t (0 = success).  q/k/v/dout/dq/dk/dv: bf16 [b, lp, h*dh]
-// views addressed by (batch, row) strides in elements, last dimension
-// contiguous, rows 16-byte aligned (checked by the Python wrapper); lse and
-// delta: contiguous [b, lp, h] f32.  dout must be zero on rows >= l_real.
+// cudaError_t (0 = success).  q is q~ = bf16(q * scale), formed by the
+// caller; q/k/v/dout/dq/dk/dv: bf16 [b, lp, h*dh] views addressed by
+// (batch, row) strides in elements, last dimension contiguous, base
+// 16-byte aligned, q/k/v/dout strides multiples of 8 elements (TMA;
+// checked by the Python wrapper).  lse and delta: f32 [b, h, pitch] with
+// pitch = lp rounded up to a multiple of 4 (stats_pitch).  Rows >= l_real
+// of every input are never read.  `scale` = dh^-1/2 * log2 e, the
+// forward's.
 // dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
@@ -400,29 +543,35 @@ extern "C" int odgs_flash_attn_bwd_bf16(
     long long dv_sl, void* stream) {
   if (b == 0 || lp == 0 || h == 0) return 0;
   if (l_real < 1 || l_real > lp) return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = static_cast<__nv_bfloat16*>(dq);
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.lp = lp;
-  a.h = h;
-  a.l_real = l_real;
-  a.scale = scale;
-  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
-  a.v_sb = v_sb; a.v_sl = v_sl; a.do_sb = do_sb; a.do_sl = do_sl;
-  a.dq_sb = dq_sb; a.dq_sl = dq_sl; a.dk_sb = dk_sb; a.dk_sl = dk_sl;
-  a.dv_sb = dv_sb; a.dv_sl = dv_sl;
+  BwdParams p;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.lp = lp;
+  p.h = h;
+  p.l_real = l_real;
+  p.pitch = stats_pitch(lp);
+  p.dq_scale = scale * LN2;
+  p.dq_sb = dq_sb; p.dq_sl = dq_sl; p.dk_sb = dk_sb; p.dk_sl = dk_sl;
+  p.dv_sb = dv_sb; p.dv_sl = dv_sl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e;
   switch (dh) {
-    case 16: return launch<16>(a, b, s);
-    case 32: return launch<32>(a, b, s);
-    case 64: return launch<64>(a, b, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16:
+      e = prepare<16>(p, q, k, v, dout, lse, delta, b, q_sb, q_sl, k_sb,
+                      k_sl, v_sb, v_sl, do_sb, do_sl);
+      return e != 0 ? e : launch<16>(p, b, s);
+    case 32:
+      e = prepare<32>(p, q, k, v, dout, lse, delta, b, q_sb, q_sl, k_sb,
+                      k_sl, v_sb, v_sl, do_sb, do_sl);
+      return e != 0 ? e : launch<32>(p, b, s);
+    case 64:
+      e = prepare<64>(p, q, k, v, dout, lse, delta, b, q_sb, q_sl, k_sb,
+                      k_sl, v_sb, v_sl, do_sb, do_sl);
+      return e != 0 ? e : launch<64>(p, b, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,214 +3,171 @@
 // Replaces the TPU Pallas kernel open_diffusiongs_tpu/ops/attention.py::
 // flash_mha_packed (body _fwd_kernel_packed, :221-290).  Same math:
 //   q/k/v [b, Lp, h*dh] bf16, head h in columns h*dh .. h*dh+dh-1;
-//   q is pre-scaled by dh^-1/2 * log2(e) and rounded back to bf16;
+//   q is pre-scaled by dh^-1/2 * log2(e) in f32 and rounded back to bf16;
 //   the online softmax runs in base 2 (exp2f) with f32 running max / sum;
-//   keys >= l_real are excluded (their K and V rows are zeroed in shared
-//   memory and their scores set to -inf, so pad-row garbage cannot leak);
+//   keys >= l_real are excluded (TMA reads their K and V rows as 0, and
+//   their scores are set to -inf, so pad-row garbage cannot leak);
+//   P is rounded to bf16 for P.V, the row sum takes the unrounded f32 P;
 //   output in bf16, pad rows (>= l_real) are garbage like on the TPU.
 // With a non-null `lse` (the training forward, body _fwd_kernel_packed_stats
 // :212) it also writes the base-2 log-sum-exp m + log2(l) of every real row
 // into lse [b, Lp, h] f32 (pad rows get 0): the one forward fact the
-// backward (flash_attn_bwd.cu) rebuilds P from.  One template flag, so the
-// stats-free sampling launch is unchanged.
+// backward (flash_attn_bwd.cu) rebuilds P from.
 // With `SMAX` (body _fwd_kernel_packed_smax :146-210, flash_mha_packed(
 // scalar_max=True)) the running max is one scalar per (64-row q tile, head)
-// instead of one per row: each key tile's max is reduced over the whole
-// block (warp shuffles, then shared memory across the 4 warps).  As on the
-// TPU, the zeroed pad keys (score 0) count toward that max when
-// Lp > l_real, and so do the q tile's pad rows (< Lp); rows past Lp are
-// not part of the tile.  A row whose scores all sit > ~126 below the
-// block max underflows to 0 (denominator clamped at 1e-30, as :207).
+// instead of one per row: each key tile's max is reduced over the
+// warpgroup's 64 rows (shuffles within each row quad and across the warp,
+// then shared memory and a 128-thread named barrier over its 4 warps).  As
+// on the TPU, the zeroed pad keys (score 0) count toward that max when
+// Lp > l_real, and so do the tile's pad rows (< Lp); rows past Lp are not
+// part of the tile.  A row whose scores all sit > ~126 below the tile max
+// underflows to 0 (denominator clamped at 1e-30, as :207).
 // The TPU kernel's V "ones column" (an MXU trick for the row sum) is not
 // carried over: the row sum is accumulated in registers.
 //
-// Design (FlashAttention-2 shape, simple first version): one 128-thread
-// block per (64-row q tile, head, batch); each of the 4 warps owns 16 q
-// rows.  Q fragments stay in registers; 64-key K and V tiles are staged
-// through shared memory (V transposed, so its mma B fragments are 32-bit
-// loads).  Q·Kᵀ and P·V run on the tensor cores with mma.sync m16n8k16
-// (bf16 in, f32 accumulate).  The score accumulator of two adjacent n8
-// tiles is exactly the A-fragment layout of the P·V mma, so P goes from
-// registers to the tensor cores without touching shared memory; P is
-// rounded to bf16 there (the TPU kernel keeps P·V in f32), the row sum uses
-// the unrounded f32 P.
-//
 // What bounds it: at the 256^2 flagship shape (Lp = l_real = 4098, h = 16,
 // dh = 64) one call is 4·L²·dh·h ≈ 68.8 GFLOP of tensor-core work on
-// ~25 MB of q/k/v, far above the H100's ~295 FLOP/byte ridge, so the bound
-// is tensor-core issue rate.  This first version leaves most of it on the
-// table: no cp.async/TMA pipelining (each K/V tile load is exposed behind a
-// __syncthreads), mma.sync instead of wgmma, and a transposing V store with
-// shared-memory bank conflicts.  Making it fast is later work.
+// ~25 MB of q/k/v: 0.070 ms at the H100's 989 TFLOP/s bf16, far above the
+// memory bound.  The softmax's L²·h ≈ 2.7e8 exp2 per batch element run on
+// the SFUs at ≈ 3.9e12/s, ≈ 0.07 ms too: at dh = 64 the exponentials cost
+// as much as the products, so the design overlaps them.
+//
+// Design (FlashAttention-3's shape, kept simple): one block per (128-row q
+// tile, head, batch) of three warpgroups.
+//   * Producer (warpgroup 2, one thread; setmaxnreg 40): TMA loads of the
+//     q tile once, then of 128-key K and V tiles into a ring of NSTAGE
+//     stages in dynamic shared memory, each stage with a full and an empty
+//     mbarrier.  The tensor maps are 3-D {h*dh, rows, b} with the caller's
+//     row and batch strides, so q/k/v may be column slices of one fused qkv
+//     projection; they are encoded on the host at every launch.  K/V maps
+//     end at row l_real, so TMA zero-fills the keys >= l_real.  Each row of
+//     a tile is one swizzle span (128/64/32 B at dh 64/32/16).
+//   * Consumers (warpgroups 0 and 1, 64 q rows each; setmaxnreg 232): the
+//     q rows come from shared memory into registers, pre-scaled and rounded
+//     there, and are the A operand of S = q~.K^T (wgmma m64n128k16, A from
+//     registers, K as a K-major B).  P is converted in registers from the
+//     f32 accumulator to bf16 A fragments of O += P.V (wgmma m64n{dh}k16),
+//     with V read MN-major through the transpose bit: no transposed copy.
+//   * Overlap, within each warpgroup: at key tile j the warpgroup issues
+//     S_j and then P_{j-1}.V_{j-1} as two commit groups, waits for S_j
+//     only, and runs tile j's masking, max and exp2 while P_{j-1}.V_{j-1}
+//     is still on the tensor cores; then it waits for that product,
+//     releases stage j-1 to the producer and rescales O.  The two
+//     warpgroups run independently, so one's softmax also overlaps the
+//     other's products.
+//   * Epilogue: O goes out as bf16 from registers (rows >= Lp never
+//     written), the lse per real row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;          // q rows per block: 4 warps x 16 rows
-constexpr int BK = 64;          // keys per shared-memory tile
-constexpr int NTHREADS = 128;
+using namespace odgs;
+
+constexpr int WG = 128;          // threads per warpgroup
+constexpr int ROWS = 64;         // q rows per consumer warpgroup
+constexpr int BQ = 2 * ROWS;     // q rows per block
+constexpr int BK = 128;          // keys per stage
+constexpr int NSTAGE = 3;
+constexpr int NTHREADS = 3 * WG; // consumers 0 and 1, producer 2
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <int DH>
+struct FwdSmem {
+  alignas(1024) __nv_bfloat16 q[BQ * DH];
+  alignas(1024) __nv_bfloat16 k[NSTAGE][BK * DH];
+  alignas(1024) __nv_bfloat16 v[NSTAGE][BK * DH];
+  uint64_t full[NSTAGE], empty[NSTAGE], qfull;
+  float red[2][2][4];   // SMAX: [warpgroup][tile parity][warp] maxima
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct FwdParams {
+  CUtensorMap tq, tk, tv;
+  __nv_bfloat16* o;
+  float* lse;
+  int lp, h, l_real;
+  float scale;
+};
 
 template <int DH, bool STATS, bool SMAX>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int lp, int h, int l_real,
-                 float scale, long long q_sb, long long q_sl, long long k_sb,
-                 long long k_sl, long long v_sb, long long v_sl) {
-  constexpr int LDQ = DH + 8;      // padded Qs/Ks row: conflict-free frags
-  constexpr int LDV = BK + 8;      // padded row of the transposed V tile
-  constexpr int CPR = DH / 8;      // 16-byte chunks per head row
-  constexpr int KSTEPS = DH / 16;  // mma k-steps of Q·Kᵀ (1 at DH = 16)
-  constexpr int DTILES = DH / 8;   // mma n-tiles of the output row
-  static_assert(DH % 16 == 0 && DH <= 64, "DH in {16, 32, 64}");
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * LDQ];
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDQ];
-  __shared__ __align__(16) __nv_bfloat16 vt[DH * LDV];
-  __shared__ float red[2][NTHREADS / 32];   // SMAX: per-warp tile maxima
+__device__ __forceinline__ void fwd_consumer(const FwdParams& p,
+                                             FwdSmem<DH>& s, int wg, int q0,
+                                             int head, int bi, int n_kt) {
+  constexpr int KSTEPS = DH / 16;   // k16 steps of q~.K^T
+  constexpr int PSTEPS = BK / 16;   // k16 steps of P.V
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rl = wg * ROWS + warp * 16 + g;   // rows rl and rl + 8 of the tile
+  const int r0 = q0 + rl;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // mma group / thread-in-group
-  const int q0 = blockIdx.x * BQ, head = blockIdx.y, bi = blockIdx.z;
-  const int col0 = head * DH;
-  const __nv_bfloat16* qb = q + bi * q_sb + col0;
-  const __nv_bfloat16* kb = k + bi * k_sb + col0;
-  const __nv_bfloat16* vb = v + bi * v_sb + col0;
-
-  // Q tile, pre-scaled by dh^-1/2 * log2(e) and rounded back to bf16 (as
-  // the TPU kernel does); rows past Lp are zero.
-  for (int c = tid; c < BQ * CPR; c += NTHREADS) {
-    const int r = c / CPR, c8 = (c % CPR) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < lp) {
-      raw = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * q_sl + c8);
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p2[i]);
-        p2[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(&qs[r * LDQ + c8]) = raw;
-  }
-  __syncthreads();
-
+  // q~ A fragments: rows rl (+8), columns 16 kk + 2 t4 (+8), pre-scaled.
+  mbar_wait(&s.qfull, 0);
   uint32_t qf[KSTEPS][4];
-  {
-    const int r0 = warp * 16 + g;
+  load_a_frags<DH>(s.q, rl, t4, qf);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int c = kk * 16 + 2 * t4;
-      qf[kk][0] = ld32(&qs[r0 * LDQ + c]);
-      qf[kk][1] = ld32(&qs[(r0 + 8) * LDQ + c]);
-      qf[kk][2] = ld32(&qs[r0 * LDQ + c + 8]);
-      qf[kk][3] = ld32(&qs[(r0 + 8) * LDQ + c + 8]);
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&qf[kk][i]));
+      qf[kk][i] = pack_bf16x2(f.x * p.scale, f.y * p.scale);
     }
-  }
 
-  // Each thread owns rows g and g+8 of its warp's 16: running max, sum and
-  // the output accumulator fragments (row g in [0..1], row g+8 in [2..3]).
-  // SMAX: both entries hold the block's one max, which starts at the pad
+  float sacc[BK / 2], oacc[DH / 2];
+  uint32_t pf[PSTEPS][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
+  // SMAX: both entries hold the tile's one max, which starts at the pad
   // keys' score 0 when there are pad keys (Lp > l_real).
-  const float m0 = (SMAX && lp > l_real) ? 0.f : -INFINITY;
-  float m_run[2] = {m0, m0};
-  const int r0 = q0 + warp * 16 + g;
-  float l_run[2] = {0.f, 0.f};
-  float acc[DTILES][4];
-#pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[dt][j] = 0.f;
+  const float m0 = (SMAX && p.lp > p.l_real) ? 0.f : -INFINITY;
+  float m_run[2] = {m0, m0}, l_run[2] = {0.f, 0.f};
 
-  const int n_kt = (l_real + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // every warp is done with the previous K/V tile
-    for (int c = tid; c < BK * CPR; c += NTHREADS) {
-      const int r = c / CPR, c8 = (c % CPR) * 8;
-      uint4 kr = make_uint4(0u, 0u, 0u, 0u), vr = kr;
-      if (k0 + r < l_real) {
-        kr = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * k_sl + c8);
-        vr = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * v_sl + c8);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * LDQ + c8]) = kr;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt[(c8 + i) * LDV + r] = ve[i];
-    }
-    __syncthreads();
-
-    // S = Q·Kᵀ for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
+  auto issue_s = [&](int st) {
+    const uint64_t kd = make_desc<DH>(s.k[st]);
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
+      Wgmma<BK>::template rs<0>(sacc, qf[kk], desc_add(kd, kk * 32), kk > 0);
+  };
+  auto issue_pv = [&](int st) {
+    const uint64_t vd = make_desc<DH>(s.v[st]);
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kr = &ks[(nt * 8 + g) * LDQ + kk * 16 + 2 * t4];
-        mma16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    if (k0 + BK > l_real) {   // ragged last tile: keys >= l_real drop out
+    for (int kj = 0; kj < PSTEPS; ++kj)
+      Wgmma<DH>::template rs<1>(oacc, pf[kj], desc_add(vd, kj * 16 * DH * 2),
+                                1);
+  };
+  // Masks, the new max, sacc <- 2^(s - m) and this thread's part of the
+  // row sums; alpha rescales what was accumulated before tile j.
+  auto softmax = [&](int j, float (&alpha)[2], float (&ls)[2]) {
+    const int k0 = j * BK;
+    if (k0 + BK > p.l_real) {   // ragged last tile: keys >= l_real drop out
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + nt * 8 + 2 * t4 + (j & 1) >= l_real) s[nt][j] = -INFINITY;
+      for (int i = 0; i < BK / 2; ++i)
+        if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= p.l_real) sacc[i] = -INFINITY;
     }
-    if (SMAX && q0 + BQ > lp) {   // rows past Lp are not part of the block
+    if (SMAX && q0 + BQ > p.lp) {   // rows past Lp are not part of the tile
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (r0 + 8 * (j >> 1) >= lp) s[nt][j] = -INFINITY;
+      for (int i = 0; i < BK / 2; ++i)
+        if (r0 + 8 * ((i >> 1) & 1) >= p.lp) sacc[i] = -INFINITY;
     }
-
-    // Online softmax in base 2.  Every processed tile holds >= 1 real key,
-    // so the new max is finite and exp2f(-inf - m) = 0 on the first tile.
     float mt0 = m_run[0], mt1 = m_run[1];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
-      mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
+    for (int n = 0; n < BK / 8; ++n) {
+      mt0 = fmaxf(mt0, fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+      mt1 = fmaxf(mt1, fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
     }
-    if (SMAX) {   // one max over the block: warp, then the 4 warps
+    if (SMAX) {   // one max over the warpgroup's 64 rows
       mt0 = fmaxf(mt0, mt1);
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1)
         mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, off));
-      if (lane == 0) red[kt & 1][warp] = mt0;
-      __syncthreads();   // red[kt & 1] is rewritten two tiles later, after
-                         // the next tile's two barriers
+      if (lane == 0) s.red[wg][j & 1][warp] = mt0;
+      named_barrier_sync(1 + wg);   // red[wg][j & 1] is rewritten two tiles
+                                    // later, after the next tile's barrier
 #pragma unroll
-      for (int w = 0; w < NTHREADS / 32; ++w) mt0 = fmaxf(mt0, red[kt & 1][w]);
+      for (int w = 0; w < 4; ++w) mt0 = fmaxf(mt0, s.red[wg][j & 1][w]);
       mt1 = mt0;
     } else {
       mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
@@ -218,45 +175,76 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
       mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
     }
-    const float a0 = exp2f(m_run[0] - mt0), a1 = exp2f(m_run[1] - mt1);
+    // Every processed tile holds >= 1 real key (and, SMAX, >= 1 row < Lp),
+    // so the new max is finite and exp2f(-inf - m) = 0 on the first tile.
+    alpha[0] = exp2f(m_run[0] - mt0);
+    alpha[1] = exp2f(m_run[1] - mt1);
     m_run[0] = mt0;
     m_run[1] = mt1;
-    l_run[0] *= a0;
-    l_run[1] *= a1;
+    ls[0] = ls[1] = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
+    for (int n = 0; n < BK / 8; ++n) {
+      sacc[4 * n] = exp2f(sacc[4 * n] - mt0);
+      sacc[4 * n + 1] = exp2f(sacc[4 * n + 1] - mt0);
+      sacc[4 * n + 2] = exp2f(sacc[4 * n + 2] - mt1);
+      sacc[4 * n + 3] = exp2f(sacc[4 * n + 3] - mt1);
+      ls[0] += sacc[4 * n] + sacc[4 * n + 1];
+      ls[1] += sacc[4 * n + 2] + sacc[4 * n + 3];
     }
+  };
+  // The accumulator of n8 tiles 2 kj, 2 kj + 1 is the A fragment of k16
+  // step kj; P is rounded to bf16 here.
+  auto to_p = [&]() {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mt0);
-      s[nt][1] = exp2f(s[nt][1] - mt0);
-      s[nt][2] = exp2f(s[nt][2] - mt1);
-      s[nt][3] = exp2f(s[nt][3] - mt1);
-      l_run[0] += s[nt][0] + s[nt][1];
-      l_run[1] += s[nt][2] + s[nt][3];
-    }
+    for (int kj = 0; kj < PSTEPS; ++kj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[kj][i] = pack_bf16x2(sacc[8 * kj + 2 * i], sacc[8 * kj + 2 * i + 1]);
+  };
 
-    // O += P·V: the score fragments of n-tiles 2j, 2j+1 are the A fragment
-    // of k-step j.
+  float alpha[2], ls[2];
+  mbar_wait(&s.full[0], 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sacc);
+  softmax(0, alpha, ls);
+  l_run[0] = ls[0];
+  l_run[1] = ls[1];
+  to_p();
+  for (int j = 1; j < n_kt; ++j) {
+    const int st = j % NSTAGE, prev = (j - 1) % NSTAGE;
+    mbar_wait(&s.full[st], (j / NSTAGE) & 1);
+    wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    issue_pv(prev);
+    wgmma_commit();
+    wgmma_wait<1>();          // S_j is done; P_{j-1}.V_{j-1} may still run
+    fence_regs(sacc);
+    softmax(j, alpha, ls);
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    if (tid == 0) mbar_arrive(&s.empty[prev]);
+    l_run[0] = l_run[0] * alpha[0] + ls[0];
+    l_run[1] = l_run[1] * alpha[1] + ls[1];
 #pragma unroll
-    for (int kj = 0; kj < BK / 16; ++kj) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * kj][0], s[2 * kj][1]),
-                              pack_bf16x2(s[2 * kj][2], s[2 * kj][3]),
-                              pack_bf16x2(s[2 * kj + 1][0], s[2 * kj + 1][1]),
-                              pack_bf16x2(s[2 * kj + 1][2], s[2 * kj + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        const __nv_bfloat16* vr = &vt[(dt * 8 + g) * LDV + kj * 16 + 2 * t4];
-        mma16816(acc[dt], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int n = 0; n < DH / 8; ++n) {
+      oacc[4 * n] *= alpha[0];
+      oacc[4 * n + 1] *= alpha[0];
+      oacc[4 * n + 2] *= alpha[1];
+      oacc[4 * n + 3] *= alpha[1];
     }
+    to_p();
   }
+  wgmma_fence();
+  issue_pv((n_kt - 1) % NSTAGE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(oacc);
 
-  // Row sums live spread over the 4 threads of a group.
+  // Row sums live spread over the 4 threads of a quad.
   float l0 = l_run[0], l1 = l_run[1];
   l0 += __shfl_xor_sync(FULL, l0, 1);
   l0 += __shfl_xor_sync(FULL, l0, 2);
@@ -264,24 +252,81 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(FULL, l1, 2);
   // Clamped as on the TPU (:73, :207): only a SMAX row can underflow to 0.
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const long long o_sl = (long long)h * DH;
-  __nv_bfloat16* ob = o + (long long)bi * lp * o_sl + col0;
+  const long long o_sl = (long long)p.h * DH;
+  __nv_bfloat16* ob = p.o + (long long)bi * p.lp * o_sl + head * DH;
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt) {
-    const int c = dt * 8 + 2 * t4;
-    if (r0 < lp)
+  for (int n = 0; n < DH / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    if (r0 < p.lp)
       *reinterpret_cast<uint32_t*>(ob + r0 * o_sl + c) =
-          pack_bf16x2(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r0 + 8 < lp)
+          pack_bf16x2(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+    if (r0 + 8 < p.lp)
       *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o_sl + c) =
-          pack_bf16x2(acc[dt][2] * inv1, acc[dt][3] * inv1);
+          pack_bf16x2(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
   }
-  if (STATS && t4 == 0) {   // m and l are shared by the 4 threads of a group
-    float* lb = lse + (long long)bi * lp * h + head;
-    if (r0 < lp) lb[(long long)r0 * h] = r0 < l_real ? m_run[0] + log2f(l0) : 0.f;
-    if (r0 + 8 < lp)
-      lb[(long long)(r0 + 8) * h] = r0 + 8 < l_real ? m_run[1] + log2f(l1) : 0.f;
+  if (STATS && t4 == 0) {   // m and l are shared by the 4 threads of a quad
+    float* lb = p.lse + (long long)bi * p.lp * p.h + head;
+    if (r0 < p.lp)
+      lb[(long long)r0 * p.h] = r0 < p.l_real ? m_run[0] + log2f(l0) : 0.f;
+    if (r0 + 8 < p.lp)
+      lb[(long long)(r0 + 8) * p.h] =
+          r0 + 8 < p.l_real ? m_run[1] + log2f(l1) : 0.f;
   }
+}
+
+template <int DH, bool STATS, bool SMAX>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ FwdParams p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  FwdSmem<DH>& s = smem_storage<FwdSmem<DH>>(smem_raw);
+  const int q0 = blockIdx.x * BQ, head = blockIdx.y, bi = blockIdx.z;
+  const int wg = threadIdx.x / WG;
+  const int n_active = q0 + ROWS < p.lp ? 2 : 1;   // consumers with rows < Lp
+  const int n_kt = (p.l_real + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < NSTAGE; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], n_active);
+    }
+    mbar_init(&s.qfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (wg == 2) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * WG) {
+      mbar_expect_tx(&s.qfull, BQ * DH * 2);
+      tma_load_3d(s.q, &p.tq, &s.qfull, head * DH, q0, bi);
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % NSTAGE;
+        mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&s.full[st], 2 * BK * DH * 2);
+        tma_load_3d(s.k[st], &p.tk, &s.full[st], head * DH, j * BK, bi);
+        tma_load_3d(s.v[st], &p.tv, &s.full[st], head * DH, j * BK, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    if (wg < n_active)
+      fwd_consumer<DH, STATS, SMAX>(p, s, wg, q0, head, bi, n_kt);
+  }
+}
+
+template <int DH, bool STATS, bool SMAX>
+int launch_kernel(const FwdParams& p, int b, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<DH, STATS, SMAX>;
+  constexpr int smem = smem_bytes<FwdSmem<DH>>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid((p.lp + BQ - 1) / BQ, p.h, b);
+  kern<<<grid, NTHREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
@@ -289,40 +334,36 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int b, int lp, int h, int l_real, float scale, long long q_sb,
            long long q_sl, long long k_sb, long long k_sl, long long v_sb,
            long long v_sl, bool smax, cudaStream_t stream) {
-  const dim3 grid((lp + BQ - 1) / BQ, h, b);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp32 = static_cast<float*>(lse);
-  if (lse != nullptr)
-    flash_fwd_kernel<DH, true, false><<<grid, NTHREADS, 0, stream>>>(
-        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
-        v_sb, v_sl);
-  else if (smax)
-    flash_fwd_kernel<DH, false, true><<<grid, NTHREADS, 0, stream>>>(
-        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
-        v_sb, v_sl);
-  else
-    flash_fwd_kernel<DH, false, false><<<grid, NTHREADS, 0, stream>>>(
-        qp, kp, vp, op, lp32, lp, h, l_real, scale, q_sb, q_sl, k_sb, k_sl,
-        v_sb, v_sl);
-  return static_cast<int>(cudaGetLastError());
+  FwdParams p;
+  const int width = h * DH;
+  if (!make_map_bf16<DH>(&p.tq, q, width, lp, b, q_sl, q_sb, BQ) ||
+      !make_map_bf16<DH>(&p.tk, k, width, l_real, b, k_sl, k_sb, BK) ||
+      !make_map_bf16<DH>(&p.tv, v, width, l_real, b, v_sl, v_sb, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.lp = lp;
+  p.h = h;
+  p.l_real = l_real;
+  p.scale = scale;
+  if (lse != nullptr) return launch_kernel<DH, true, false>(p, b, stream);
+  if (smax) return launch_kernel<DH, false, true>(p, b, stream);
+  return launch_kernel<DH, false, false>(p, b, stream);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).
-// Strides are in elements; the last dimension must be contiguous and every
-// row start 16-byte aligned (checked by the Python wrapper).  `lse` is null
-// (no stats) or a contiguous [b, lp, h] f32 buffer.  `smax` != 0 selects
-// the scalar-max recurrence, which exports no stats.  dh in {16, 32, 64}.
+// Strides are in elements; the last dimension must be contiguous, the base
+// 16-byte aligned and the row and batch strides multiples of 8 elements
+// (TMA's 16-byte rule; checked by the Python wrapper).  `lse` is null (no
+// stats) or a contiguous [b, lp, h] f32 buffer.  `smax` != 0 selects the
+// scalar-max recurrence, which exports no stats.  dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
-    int lp,
-    int h, int dh, int l_real, float scale, long long q_sb, long long q_sl,
-    long long k_sb, long long k_sl, long long v_sb, long long v_sl,
-    int smax, void* stream) {
+    int lp, int h, int dh, int l_real, float scale, long long q_sb,
+    long long q_sl, long long k_sb, long long k_sl, long long v_sb,
+    long long v_sl, int smax, void* stream) {
   if (b == 0 || lp == 0 || h == 0) return 0;
   if (l_real < 1 || l_real > lp) return static_cast<int>(cudaErrorInvalidValue);
   if (smax && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);

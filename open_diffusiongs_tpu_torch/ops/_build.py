@@ -1,13 +1,16 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-Every `.cu` file under `open_diffusiongs_tpu_torch/csrc/` is compiled by
-its own `nvcc` process (all started together, then linked) into ONE shared
-library with a plain C interface, loaded with
-`ctypes` (no PyTorch headers: the build takes seconds, not minutes).  The
-library lands in `<repo>/build/torch_kernels/<hash>/`, keyed by a hash of
-the sources and flags, so an edited kernel rebuilds and an unchanged one is
-reused.  Nothing is built at import time: the first wrapper that launches a
-kernel on a CUDA tensor calls `load_library()`.
+Every `.cu` file under `open_diffusiongs_tpu_torch/csrc/` (with the shared
+`.cuh` headers beside it) is compiled by its own `nvcc` process (all
+started together, then linked) into ONE shared library with a plain C
+interface, loaded with `ctypes` (no PyTorch headers: the build takes
+seconds, not minutes).  The library lands in
+`<repo>/build/torch_kernels/<hash>/`, keyed by a hash of the sources,
+headers and flags, so an edited kernel rebuilds and an unchanged one is
+reused.  The TMA tensor maps are encoded through
+`cudaGetDriverEntryPoint` (csrc/hopper.cuh), so nothing links `-lcuda`.
+Nothing is built at import time: the first wrapper that launches a kernel
+on a CUDA tensor calls `load_library()`.
 
 No `--use_fast_math`: the blend's `expf` must stay IEEE-accurate to hold the
 rasterizer's 2e-5 parity bar.
@@ -65,6 +68,10 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -78,7 +85,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -65,6 +65,44 @@ def _check_shapes(q, k, v, num_heads: int, l_real: int):
     return b, lp, hd, hd // num_heads
 
 
+def tma_compatible(data_ptr: int, strides, itemsize: int) -> bool:
+    """TMA's rule for a tensor map over a view: the base 16-byte aligned and
+    every stride but the last (contiguous) one a multiple of 16 bytes, so
+    every row starts 16-byte aligned."""
+    return (data_ptr % 16 == 0
+            and all(s * itemsize % 16 == 0 for s in tuple(strides)[:-1]))
+
+
+def stats_pitch(lp: int) -> int:
+    """Row pitch of the backward kernels' lse / delta layout [b, h, pitch]:
+    Lp rounded up to a multiple of 4 f32, so each row starts 16-byte
+    aligned for TMA (csrc/flash_attn_bwd.cu::stats_pitch)."""
+    return -(-lp // 4) * 4
+
+
+def _stats_by_head(x: torch.Tensor) -> torch.Tensor:
+    """[b, Lp, h] f32 -> zero-padded [b, h, stats_pitch(Lp)]."""
+    b, lp, h = x.shape
+    out = x.new_zeros((b, h, stats_pitch(lp)))
+    out[..., :lp] = x.transpose(1, 2)
+    return out
+
+
+def _delta_by_head(do: torch.Tensor, o: torch.Tensor, num_heads: int,
+                   l_real: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head in f32, reduced straight into the
+    backward kernels' zero-padded [b, h, stats_pitch(Lp)] layout over the
+    rows < l_real only: the kernels never read dO, O or delta on the rows
+    >= l_real (their tensor maps end there), so dO needs no mask."""
+    b, lp, hd = o.shape
+    out = torch.zeros((b, num_heads, stats_pitch(lp)), dtype=torch.float32,
+                      device=o.device)
+    prod = do[:, :l_real].to(torch.float32, copy=True).mul_(o[:, :l_real])
+    torch.sum(prod.reshape(b, l_real, num_heads, hd // num_heads), -1,
+              out=out[..., :l_real].transpose(1, 2))
+    return out
+
+
 def _check_bf16_cuda(what: str, xs: dict, aligned: bool = True):
     """Device, dtype and layout checks of a kernel launch's bf16 operands:
     on the first one's CUDA device, last dimension contiguous and, with
@@ -82,8 +120,8 @@ def _check_bf16_cuda(what: str, xs: dict, aligned: bool = True):
         if x.stride(-1) != 1:
             raise ValueError(f"{what}: {name}: last dimension must be "
                              f"contiguous")
-        if aligned and (x.data_ptr() % 16
-                        or any(s % 8 for s in x.stride()[:-1])):
+        if aligned and not tma_compatible(x.data_ptr(), x.stride(),
+                                          x.element_size()):
             raise ValueError(f"{what}: {name}: rows must start 16-byte "
                              f"aligned (strides {x.stride()})")
 
@@ -128,8 +166,12 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _prescaled_q(q: torch.Tensor, dh: int) -> torch.Tensor:
-    """q~ = q * dh^-1/2 * log2(e), rounded to q's dtype (as the kernels)."""
-    return (q.float() * (dh ** -0.5 * LOG2E)).to(q.dtype)
+    """q~ = q * dh^-1/2 * log2(e), rounded to q's dtype (as the kernels):
+    PyTorch multiplies a bf16 / f16 tensor by a Python scalar in f32 and
+    rounds once, which is bf16(f32(q) * f32(scale)) without an f32 copy
+    of q (held bit for bit by tests/test_torch_build.py and on the card by
+    chip_smoke.py phase 6)."""
+    return q * (dh ** -0.5 * LOG2E)
 
 
 def _block_max(s: torch.Tensor, block_rows: int, pad_keys: bool
@@ -283,22 +325,27 @@ def _bwd_fused(q, k, v, o, do, lse, num_heads: int, l_real: int
     if q.device.type == "cpu":
         return torch.cat(flash_mha_packed_bwd_ref(
             q, k, v, o, do, lse, num_heads=num_heads, l_real=l_real), -1)
-    do, delta = _masked_cotangent(do, o, num_heads, l_real)
+    do = do.to(o.dtype).contiguous()    # no copy for the DiT's cotangent
     _check_cuda("flash_mha_packed_bwd", q, dh, dict(q=q, k=k, v=v, o=o,
-                                                    do=do),
-                dict(lse=lse, delta=delta))
+                                                    do=do), dict(lse=lse))
     if lse.shape != (b, lp, num_heads):
         raise ValueError(f"flash_mha_packed_bwd: lse must be "
                          f"{(b, lp, num_heads)}, got {tuple(lse.shape)}")
     _refuse_grad("flash_mha_packed_bwd", q, k, v, o, do)
+    # the kernels read q~ (formed once here, as the forward rounds it), dO
+    # as given (TMA reads its rows >= l_real as 0) and lse / delta per
+    # head, each through a TMA tensor map
+    qs = _prescaled_q(q, dh)
+    lse_h = _stats_by_head(lse)
+    delta_h = _delta_by_head(do, o, num_heads, l_real)
     dqkv = torch.empty((b, lp, 3 * hd), dtype=q.dtype, device=q.device)
     dq, dk, dv = dqkv.chunk(3, dim=-1)
     lib = _build.load_library()
     err = lib.odgs_flash_attn_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse_h.data_ptr(), delta_h.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, lp, num_heads, dh, l_real, dh ** -0.5 * LOG2E,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        qs.stride(0), qs.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), do.stride(0), do.stride(1),
         dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
         dv.stride(0), dv.stride(1),
