@@ -53,10 +53,22 @@ Phases, one summary line each (every failure raises and exits non-zero):
   9. general attention route
                a. the general-route kernel (flash_full_mha) against its
                   plain twin on bf16 q/k/v slices of a fused qkv at
-                  [1, 4098, 16, 64], [1, 4098, 16, 48], [2, 700, 3, 40] and
-                  [1, 1100, 5, 20] (rel-max 8e-3), timed at L = 4098 and
-                  16386 (the plain twin at 4098 only: its f32 scores at
-                  16386 would be ~17 GB);
+                  [1, 4098, 16, 64], [1, 4098, 16, 48], [2, 700, 3, 40],
+                  [1, 1100, 5, 20] (the wrapper's padded copy), both
+                  halves of subset attention (3072 queries over 4098
+                  keys, 1026 over 1026) and small shapes off the tiling
+                  (FULL_CASES; rel-max 8e-3); q~'s rounding (the helper
+                  bit for bit, and the kernel nearer #5's bf16-scale
+                  twin than an f32-scale one at 3x scores); its f32 P·V
+                  (the kernel nearer the f32-P twin than a bf16-P one,
+                  both rounded to bf16); the wrapper's host time per
+                  call; registers, spills and wgmma serialisation
+                  warnings of its instantiations from the build's
+                  -Xptxas -v report (a missing report fails; no
+                  warning allowed); the wrapper's device
+                  time by kernel (torch.profiler), direct and padded;
+                  timed at L = 4098 and 16386 (the plain twin at 4098
+                  only: its f32 scores at 16386 would be ~17 GB);
                b. the scalar-max packed forward against its twin (64-row
                   blocks) at b = 1, L = 4098 on a fused qkv and on a ragged
                   Lp = 4608 with 1e4 garbage (rel-max 8e-3), timed;
@@ -64,7 +76,10 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   dim_heads 48 (16 heads of 48, which fail the packed lane
                   test; no shipped config uses this layout): exactly
                   24 x 30 general-route launches and none of the packed
-                  forward, finite renders and Gaussians;
+                  forward (and the blend launches) in the timed asset,
+                  finite renders and Gaussians; then one more asset
+                  under torch.profiler: device ms per asset and
+                  the general-route kernel's part of it;
                d. 24 DiTBlock(1024, 16, qk_norm=True) at L = 4098, b = 1,
                   bf16, random weights from seed 0: one warm-up and one
                   timed forward, 24 general-route launches, finite output;
@@ -181,12 +196,15 @@ def attn_bwd_bound(b, lp, l_real, h, dh) -> dict:
     return bound(ops, nbytes)
 
 
-def device_ms_by_kernel(torch, fn, iters: int = 10) -> dict:
+def device_ms_by_kernel(torch, fn, iters: int = 10,
+                        warm_up: bool = True) -> dict:
     """Device ms per call of each kernel fn() launches, by torch.profiler,
     largest first, under its name cut to 60 characters (empty if the
-    profiler sees no device time)."""
+    profiler sees no device time).  One unprofiled call first unless the
+    caller has warmed fn up."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -806,25 +824,129 @@ def fused_heads(torch, dev, gen, b, l, h, d):
     return tuple(x.reshape(b, l, h, d) for x in qkv.chunk(3, dim=-1))
 
 
+def ptxas_summary(log: str, entry: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    `entry`, from an `nvcc -Xptxas -v` log, under its template arguments."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if entry in m.group(1) else None
+            if name:
+                args = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
+                name = ("DH={} split={} score_bf16={}".format(*args.groups())
+                        if args else name)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if name and m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def full_twin_on(torch, qs, k, v, p_bf16: bool = False):
+    """flash_full_mha_ref's softmax and P·V (f32) on a given q~; with
+    p_bf16, P is rounded to bf16 before P·V (the row sum stays f32)."""
+    s = torch.einsum("blhd,bmhd->bhlm", qs.float(), k.float())
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    return (torch.einsum("bhlm,bmhd->blhd", pv, v.float())
+            / p.sum(-1).transpose(1, 2)[..., None])
+
+
+# 9a: (b, l, h, d, q0, q1, lk): queries q0:q1 over keys :lk of a fused qkv
+# [b, l, 3 h d]: the route's shapes (d 48 / 40 in a 64-wide tile, d 20
+# through the padded copy), both halves of subset attention (s = 1026),
+# and shapes off the kernel's tiling (one consumer warpgroup, one query,
+# one key, d = 8)
+FULL_CASES = ((1, 4098, 16, 64, 0, 4098, 4098),
+              (1, 4098, 16, 48, 0, 4098, 4098),
+              (2, 700, 3, 40, 0, 700, 700), (1, 1100, 5, 20, 0, 1100, 1100),
+              (1, 4098, 16, 64, 1026, 4098, 4098),
+              (1, 4098, 16, 64, 0, 1026, 1026),
+              (1, 70, 3, 64, 0, 70, 70), (2, 129, 2, 32, 0, 129, 129),
+              (1, 300, 2, 64, 298, 300, 300), (1, 1, 2, 64, 0, 1, 1),
+              (3, 200, 2, 8, 0, 200, 200))
+
+
 def phase_general_kernel(torch, dev) -> dict:
-    """9a: flash_full_mha vs flash_full_mha_ref at the route's shapes."""
-    from open_diffusiongs_tpu_torch.ops import attention
+    """9a: flash_full_mha vs flash_full_mha_ref at the route's shapes, the
+    kernel's q~ rounding, its build (registers, spills, wgmma
+    serialisation warnings) and the wrapper's device time by kernel."""
+    from open_diffusiongs_tpu_torch.ops import _build, attention
     gen = torch.Generator(device=dev).manual_seed(4)
     l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
     cases = {}
-    for b, n, h, d in ((1, l, 16, 64), (1, l, 16, 48), (2, 700, 3, 40),
-                       (1, 1100, 5, 20)):
+    for b, n, h, d, q0, q1, lk in FULL_CASES:
         q, k, v = fused_heads(torch, dev, gen, b, n, h, d)
+        q, k, v = q[:, q0:q1], k[:, :lk], v[:, :lk]
+        name = f"{b}x{n}x{h}x{d}"
+        if (q0, q1, lk) != (0, n, n):
+            name += f" queries {q0}:{q1} over {lk} keys"
         out = attention.flash_full_mha(q, k, v)
         ref = attention.flash_full_mha_ref(q, k, v)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            raise AssertionError(f"flash_full_mha {[b, n, h, d]}: non-finite")
-        cases[f"{b}x{n}x{h}x{d}"] = {
+            raise AssertionError(f"flash_full_mha {name}: non-finite")
+        cases[name] = {
             "rel_max_err": rel_max(out, ref),
-            "max_abs_err": float((out.float() - ref.float()).abs().max())}
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "tma_reads_views": all(attention.full_takes_view(
+                x.data_ptr(), x.shape, x.stride(), x.element_size())
+                for x in (q, k, v))}
         del out, ref
+    # q~ = bf16(q * bf16(scale)): the wrapper's helper equals the kernel's
+    # arithmetic (f32 product of two bf16 values, rounded once) bit for
+    # bit, and at scores large enough to tell the two roundings apart the
+    # kernel sits on #5's (bf16 scale) twin, not on one that rounds the
+    # scale and the product once from f32 (the packed path's q~).
     q, k, v = fused_heads(torch, dev, gen, 1, l, 16, 64)
+    q3 = (q.float() * 3.0).to(torch.bfloat16)
+    scale = attention._full_scale(64, torch.bfloat16)
+    out = attention.flash_full_mha(q3, k, v).float()
+    prescale = {
+        "helper_bit_exact": torch.equal(
+            attention._full_prescaled_q(q3),
+            (q3.float() * scale).to(torch.bfloat16)),
+        "mean_err_to_bf16_scale_twin": float((out - full_twin_on(
+            torch, attention._full_prescaled_q(q3), k, v)).abs().mean()),
+        "mean_err_to_f32_scale_twin": float((out - full_twin_on(
+            torch, attention._prescaled_q(q3, 64), k, v)).abs().mean())}
+    del out, q3
+    # P·V keeps P in f32 (the P_hi + P_lo split): the kernel's output sits
+    # on the f32-P twin, not on one that rounds P to bf16 before P·V (the
+    # packed kernel's product).  Both twins are rounded to bf16 as the
+    # kernel's output is: unrounded, that last rounding is as large as
+    # the bf16-P error and hides it.
+    out = attention.flash_full_mha(q, k, v).float()
+    qs = attention._full_prescaled_q(q)
+    pv_precision = {
+        f"mean_err_to_{name}_twin": float((out - full_twin_on(
+            torch, qs, k, v, p_bf16=p_bf16).to(torch.bfloat16).float()
+        ).abs().mean()) for name, p_bf16 in (("f32_p", False),
+                                             ("bf16_p", True))}
+    del out, qs
+    try:
+        log = _build.build_log("flash_full_fwd.cu")
+    except FileNotFoundError:
+        log = None
+    build = ptxas_summary(log, "flash_full_kernel") if log else None
+    serialised = re.findall(r"C75(?:15|19|20)", log or "")
+    split = device_ms_by_kernel(torch, lambda: attention.flash_full_mha(
+        q, k, v))
+    qp, kp, vp = fused_heads(torch, dev, gen, 1, 1100, 5, 20)
+    split_padded = device_ms_by_kernel(torch, lambda: attention
+                                       .flash_full_mha(qp, kp, vp))
+    del qp, kp, vp
+    torch.cuda.synchronize()     # host time of the wrapper: 20 enqueues
+    t0 = time.perf_counter()
+    for _ in range(20):
+        attention.flash_full_mha(q, k, v)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
     ms = cuda_ms(lambda: attention.flash_full_mha(q, k, v), 20)
     plain_ms = cuda_ms(lambda: attention.flash_full_mha_ref(q, k, v), 3)
     sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -836,10 +958,23 @@ def phase_general_kernel(torch, dev) -> dict:
     q5, k5, v5 = fused_heads(torch, dev, gen, 1, l512, 16, 64)
     ms_512 = cuda_ms(lambda: attention.flash_full_mha(q5, k5, v5), 10)
     del q5, k5, v5
+    bound_512 = attn_fwd_bound(1, l512, l512, 16, 64, pv="tf32")
+    # per query-key pair and head: the function's two products (4 d flop)
+    # and the three bf16 products the split kernel runs on the tensor
+    # cores (6 d), both over real rows and keys (tile padding not counted)
+    rates = {f"{what}_tflops{at}": n * 16 * 64 * ll * ll / (t * 1e-3) / 1e12
+             for what, n in (("function", 4.0), ("tensor_core", 6.0))
+             for at, ll, t in (("", l, ms), ("_L16386", l512, ms_512))}
     res = {"cases": cases, "ms": ms, "plain_ms": plain_ms,
            "sdpa_ms": sdpa_ms, **attn_fwd_bound(1, l, l, 16, 64, pv="tf32"),
            "packed_kernel_ms_same_inputs": packed_ms, "ms_L16386": ms_512,
+           "bound_ms_L16386": bound_512["bound_ms"], **rates,
            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+           "prescale": prescale, "pv_precision": pv_precision,
+           "ptxas": build,
+           "ptxas_serialisation_warnings": len(serialised),
+           "device_ms_by_kernel": split, "wrapper_host_us": host_us,
+           "device_ms_by_kernel_padded_1x1100x5x20": split_padded,
            "timed": f"b=1 L={l} (and {l512}) h=16 d=64 bf16, fused qkv; "
                     f"plain twin at L={l} only"}
     print(f"[9a general attention kernel] {json.dumps(res)}", flush=True)
@@ -847,6 +982,25 @@ def phase_general_kernel(torch, dev) -> dict:
         if not c["rel_max_err"] <= ATTN_REL_BOUND:
             raise AssertionError(f"flash_full_mha {name}: rel-max error "
                                  f"{c['rel_max_err']:.3g} > {ATTN_REL_BOUND}")
+    if not prescale["helper_bit_exact"]:
+        raise AssertionError("#5's q~ helper differs from bf16(f32(q) * "
+                             "f32(bf16 scale)) on the card")
+    if not (prescale["mean_err_to_bf16_scale_twin"]
+            < 0.5 * prescale["mean_err_to_f32_scale_twin"]):
+        raise AssertionError(f"flash_full_mha does not round q~ as #5: "
+                             f"{prescale}")
+    if not (pv_precision["mean_err_to_f32_p_twin"]
+            < 0.5 * pv_precision["mean_err_to_bf16_p_twin"]):
+        raise AssertionError(f"flash_full_mha's P·V is not f32-precise: "
+                             f"{pv_precision}")
+    if not build:
+        raise AssertionError(
+            "the build holds no flash_full_fwd.log" if log is None else
+            "flash_full_fwd.log reports no flash_full_kernel")
+    if serialised:
+        raise AssertionError(f"ptxas serialised wgmma in flash_full_fwd.cu "
+                             f"({len(serialised)} warnings C7515/C7519/"
+                             f"C7520)")
     return res
 
 
@@ -906,13 +1060,23 @@ def phase_general_sampling(torch, dev) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = launch_counts(attention)
+    blend_launches = blend_kernel.LAUNCHES
     want = dict({n: 0 for n in launches},
                 LAUNCHES_FULL=len(blocks) * STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the device's share of an asset, free of the host's spread: kernel
+    # time summed over one more asset (one stream: the sum is busy time)
+    by_kernel = device_ms_by_kernel(torch, lambda: pipe.batch([IMAGE], **kw),
+                                    iters=1, warm_up=False)
     g = out.gaussians
     res = {"seconds_per_asset": secs,
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "device_ms_per_asset": sum(by_kernel.values()),
+           "general_kernel_device_ms_per_asset": sum(
+               ms for name, ms in by_kernel.items()
+               if name.startswith("flash_full_kernel")),
+           "max_memory_allocated_bytes": peak,
            "launches": launches, "expected_launches": want,
-           "blend_launches": blend_kernel.LAUNCHES,
+           "blend_launches": blend_launches,
            "gaussians_after_filters": int(g.xyz.shape[0]),
            "renders_shape": list(out.renders.shape),
            "config": "configs/diffusionGS_rel.yaml with width 768, "

@@ -1,5 +1,5 @@
-// Hopper building blocks shared by the packed attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): TMA tensor maps and loads,
+// Hopper building blocks shared by the attention kernels (flash_attn_fwd.cu,
+// flash_attn_bwd.cu, flash_full_fwd.cu): TMA tensor maps and loads,
 // mbarriers, warpgroup register hand-off, and wgmma on bf16 tiles.
 //
 // Shared-memory tiles are [rows, DH] bf16 with DH in {16, 32, 64}: one row
@@ -89,6 +89,37 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int width,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A [b, rows, h, d] bf16 view (element (bi, r, head, c) at bi*sb + r*sl +
+// head*sh + c, strides in elements, the last dimension contiguous) as the
+// 4-D map {d, h, rows, b}, read in boxes of [box_rows, DH] (one head) at
+// coordinates (0, head, row, batch).  Columns >= d (d <= DH) and rows >=
+// `rows` read as 0, so a head narrower than the tile arrives zero-filled.
+// TMA needs a 16-byte aligned base, and d * 2 and the strides of the
+// dimensions longer than 1 multiples of 16 bytes (the wrapper checks
+// them); the stride of a dimension of extent 1 is never used and is
+// replaced by the packed one.
+template <int DH>
+inline bool make_map_heads_bf16(CUtensorMap* map, const void* base, int d,
+                                int h, int rows, int b, long long sh,
+                                long long sl, long long sb, int box_rows) {
+  ODGS_SINGLE_SPAN(DH);
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || d > DH) return false;
+  if (h == 1) sh = d;
+  if (rows == 1) sl = (long long)h * sh;
+  if (b == 1) sb = (long long)rows * sl;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)rows,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)DH, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle_of<DH>(), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A [n, rows_pitch] f32 matrix read in boxes of [1, box] at (column, row);
 // columns >= `cols` read as 0.  rows_pitch * 4 must be a multiple of 16.
 inline bool make_map_f32(CUtensorMap* map, const void* base, int cols,
@@ -167,6 +198,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

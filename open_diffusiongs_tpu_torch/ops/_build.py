@@ -7,7 +7,8 @@ interface, loaded with `ctypes` (no PyTorch headers: the build takes
 seconds, not minutes).  The library lands in
 `<repo>/build/torch_kernels/<hash>/`, keyed by a hash of the sources,
 headers and flags, so an edited kernel rebuilds and an unchanged one is
-reused.  The TMA tensor maps are encoded through
+reused; each source's ptxas report (`-Xptxas -v`) is kept there as
+`<stem>.log` (`build_log`).  The TMA tensor maps are encoded through
 `cudaGetDriverEntryPoint` (csrc/hopper.cuh), so nothing links `-lcuda`.
 Nothing is built at import time: the first wrapper that launches a kernel
 on a CUDA tensor calls `load_library()`.
@@ -31,6 +32,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# each source is compiled with ptxas's report (registers, spills, wgmma
+# serialisation warnings), kept beside the library as <stem>.log
+COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
 LIB_NAME = "libodgs_kernels.so"
 
 _lib = None
@@ -48,9 +52,10 @@ SIGNATURES = {
     # q/k/v batch and row strides (elements), scalar_max, stream
     "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                  _L, _L, _L, _L, _L, _L, _I, _P],
-    # q, k, v, o, b, lq, h, d, l_real, scale, q/k/v/o batch, row and head
-    # strides (elements), pv_f32, score_bf16, stream
-    "odgs_flash_full_fwd_bf16": [_P] * 4 + [_I] * 5 + [_F] + [_L] * 12
+    # q, k, v, o, b, lq, lk, h, d, dm (columns the maps read), scale,
+    # q/k/v batch, row and head strides (elements), pv_f32, score_bf16,
+    # stream
+    "odgs_flash_full_fwd_bf16": [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9
                                 + [_I, _I, _P],
     # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, l_real, scale,
     # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
@@ -84,7 +89,7 @@ def _nvcc() -> str:
 
 
 def build_dir() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -104,13 +109,10 @@ def build(verbose: bool = False) -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as work:
         # one nvcc per source, all running at once, then one link
-        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         jobs = []
         for src in _sources():
             obj = os.path.join(work, src.stem + ".o")
-            cmd = [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose
-                                           else []), "-c", "-o", obj,
-                   str(src)]
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -120,6 +122,7 @@ def build(verbose: bool = False) -> Path:
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
                                    f"\n{log}")
+            (out_dir / (Path(cmd[-1]).stem + ".log")).write_text(log)
             if verbose and log:
                 print(log)
         tmp = os.path.join(work, LIB_NAME)
@@ -131,6 +134,13 @@ def build(verbose: bool = False) -> Path:
         os.replace(tmp, lib_path)      # atomic: a reader never sees a torn .so
     BUILD_SECONDS = time.perf_counter() - t0
     return lib_path
+
+
+def build_log(source: str) -> str:
+    """The nvcc / ptxas output of one csrc source (e.g. "flash_full_fwd.cu")
+    from the build of the current sources; FileNotFoundError if that build
+    has not run."""
+    return (build_dir() / (Path(source).stem + ".log")).read_text()
 
 
 def load_library(verbose: bool = False) -> ctypes.CDLL:

@@ -9,6 +9,8 @@ Counterparts of open_diffusiongs_tpu/ops/attention.py:
   * `flash_full_mha` (:638-665) on [b, l, h, d], the DiT's general route:
     csrc/flash_full_fwd.cu, which also runs the bench variant `mha_full`
     of tools/bench_attn2.py (:89-126) on [h, L, 64].
+All three kernels are warp-specialised TMA + mbarrier rings feeding
+`wgmma` (csrc/hopper.cuh).
 The plain versions (`*_ref`) compute the same functions with explicit f32
 formulas.  Each wrapper takes its plain version only for CPU tensors (the
 test oracle); on a CUDA tensor it launches its kernel or raises — never a
@@ -33,6 +35,7 @@ DiT runs at Lp = L; the real rows agree either way.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -407,6 +410,7 @@ def flash_attention(qkv: torch.Tensor, *, num_heads: int, l_real: int
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _full_scale(d: int, dtype: torch.dtype) -> float:
     """d^-1/2 * log2(e) rounded to `dtype`, as JAX forms it (:652)."""
     return float(torch.tensor(d ** -0.5 * LOG2E, dtype=dtype))
@@ -453,18 +457,73 @@ def flash_full_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return o.to(q.dtype)
 
 
+def full_tile_width(d: int) -> int:
+    """The general-route kernel's tile width for a head width d <= 64: the
+    smallest of 16, 32 and 64 that holds it (one swizzle span a row)."""
+    return 16 if d <= 16 else 32 if d <= 32 else 64
+
+
+def full_takes_view(data_ptr: int, shape, strides, itemsize: int) -> bool:
+    """Whether csrc/flash_full_fwd.cu reads a [b, l, h, d] view as it lies,
+    through its 4-D TMA map {d, h, l, b}: last dimension contiguous, base
+    16-byte aligned, d and the stride of every dimension longer than 1
+    multiples of 16 bytes.  A rule on shapes and strides alone; a view it
+    refuses goes to the kernel as a zero-padded copy (`_full_operands`)."""
+    if strides[-1] != 1 or data_ptr % 16 or shape[-1] * itemsize % 16:
+        return False
+    for n, s in zip(shape[:-1], strides[:-1]):
+        if n > 1 and s * itemsize % 16:
+            return False
+    return True
+
+
+def _full_operands(*xs: torch.Tensor):
+    """The kernel's operands and the columns its maps read: the views
+    themselves (d) when `full_takes_view` takes all of them, else
+    contiguous copies zero-padded to the tile width (one copy each)."""
+    d = xs[0].shape[-1]
+    if all(full_takes_view(x.data_ptr(), x.shape, x.stride(),
+                           x.element_size()) for x in xs):
+        return xs, d
+    width = full_tile_width(d)
+    padded = []
+    for x in xs:
+        p = x.new_zeros((*x.shape[:-1], width))
+        p[..., :d] = x
+        padded.append(p)
+    return tuple(padded), width
+
+
+def _launch_full(what: str, q, k, v, out, lk: int, scale: float,
+                 pv_f32: bool, score_bf16: bool) -> None:
+    """One launch of csrc/flash_full_fwd.cu: q [b, lq, h, d] and k/v
+    [b, >= lk, h, d] bf16 views, out a contiguous [b, lq, h, d]; views TMA
+    cannot address are padded first."""
+    (q, k, v), dm = _full_operands(q, k, v)
+    b, lq, h, _ = q.shape
+    err = _build.load_library().odgs_flash_full_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, lq, lk,
+        h, out.shape[-1], dm, scale, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], int(pv_f32), int(score_bf16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+
+
 def flash_full_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                    ) -> torch.Tensor:
     """Full multi-head attention on q/k/v [b, l, h, d] with any d <= 64, any
-    h and any l (JAX flash_full_mha; the wrapper pads nothing, the kernel
-    masks its ragged tiles).  k/v may hold another number of rows than q
-    (subset attention's second half; JAX's kernel takes equal lengths only).
-    Returns a new contiguous [b, l, h, d] tensor in q's dtype.
+    h and any l (JAX flash_full_mha; the kernel masks its ragged tiles).
+    k/v may hold another number of rows than q (subset attention's second
+    half; JAX's kernel takes equal lengths only).  Returns a new contiguous
+    [b, l, h, d] tensor in q's dtype.
 
     CPU tensors: `flash_full_mha_ref`.  CUDA tensors: the sm_90a kernel of
-    csrc/flash_full_fwd.cu (bf16, last dimension contiguous, any other
-    strides).  It records no gradient and refuses inputs that require grad
-    under grad mode: the general route has no backward kernel yet."""
+    csrc/flash_full_fwd.cu (bf16, last dimension contiguous), which reads
+    the views through TMA where `full_takes_view` allows (column slices of
+    a fused qkv, d 64 / 48 / 40, subset halves) and zero-padded copies
+    otherwise (e.g. d = 20: 40-byte heads).  It records no gradient and
+    refuses inputs that require grad under grad mode: the general route has
+    no backward kernel yet."""
     global LAUNCHES_FULL
     b, l, lk, h, d = _check_full(q, k, v)
     if q.device.type == "cpu":
@@ -474,12 +533,8 @@ def flash_full_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  route="a backward of the general route, which the port "
                        "does not have yet (ROADMAP Queue 1)")
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    err = _build.load_library().odgs_flash_full_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, h, d,
-        lk, _full_scale(d, q.dtype), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], 1, 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_full_mha")
+    _launch_full("flash_full_mha", q, k, v, out, lk, _full_scale(d, q.dtype),
+                 pv_f32=True, score_bf16=False)
     LAUNCHES_FULL += 1
     return out
 
@@ -525,11 +580,13 @@ def mha_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              ) -> torch.Tensor:
     """The bench variant of the general-route kernel (tools/bench_attn2.py::
     mha_full): q/k/v [h, L, 64], q pre-scaled, keys < l_real; `pv_f32` takes
-    the tf32 P·V, otherwise P is a bf16 operand; `score_bf16` rounds the
-    softmax's scores to bf16.  Returns [h, L, 64] in q's dtype.
+    the f32 P·V (two bf16 products, as flash_full_mha), otherwise P is a
+    bf16 operand; `score_bf16` rounds the softmax's scores to bf16.
+    Returns [h, L, 64] in q's dtype.
 
     CPU tensors: `mha_full_ref`.  CUDA tensors: csrc/flash_full_fwd.cu with
-    the two flags (bf16, d = 64, 16-byte aligned rows); no gradient."""
+    the two flags (bf16, d = 64), each head as a batch element of one head,
+    [h, L, 1, 64] (the same tensor maps as flash_full_mha); no gradient."""
     global LAUNCHES_MHA_FULL
     _check_mha_full(q, k, v, l_real)
     if q.device.type == "cpu":
@@ -539,16 +596,11 @@ def mha_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d != 64:
         raise ValueError(f"mha_full: head dim {d}: the bench variants take "
                          f"d = 64")
-    _check_bf16_cuda("mha_full", dict(q=q, k=k, v=v))
+    _check_bf16_cuda("mha_full", dict(q=q, k=k, v=v), aligned=False)
     _refuse_grad("mha_full", q, k, v, route="no route (bench only)")
     out = torch.empty((h, lq, d), dtype=q.dtype, device=q.device)
-    # [h, L, d] is one batch element whose heads sit at stride(0)
-    err = _build.load_library().odgs_flash_full_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, lq, h, d,
-        l_real, 1.0, 0, q.stride(1), q.stride(0), 0, k.stride(1), k.stride(0),
-        0, v.stride(1), v.stride(0), 0, out.stride(1), out.stride(0),
-        int(pv_f32), int(score_bf16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "mha_full")
+    _launch_full("mha_full", q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                 out.unsqueeze(2), l_real, 1.0, pv_f32=pv_f32,
+                 score_bf16=score_bf16)
     LAUNCHES_MHA_FULL += 1
     return out

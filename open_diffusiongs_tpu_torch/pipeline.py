@@ -38,8 +38,8 @@ def remove_background(img: np.ndarray, matting: str = "u2net") -> np.ndarray:
       * "u2net": the reference's learned model — its weights are not in
         the repository, so this raises, as the JAX pipeline does without
         its converted weights;
-      * "grabcut": from-scratch GrabCut (open_diffusiongs_tpu/utils/
-        matting.py, a jax-free module, + native/matting.cpp);
+      * "grabcut": from-scratch GrabCut (utils/matting.py, the port's copy
+        of the JAX package's module, + native/matting.cpp);
       * "border": the median-border-colour heuristic (studio shots)."""
     if matting == "u2net":
         raise RuntimeError(
@@ -47,7 +47,7 @@ def remove_background(img: np.ndarray, matting: str = "u2net") -> np.ndarray:
             "not have; pass matting='grabcut' or 'border' to acknowledge the "
             "fallback")
     if matting == "grabcut":
-        from open_diffusiongs_tpu.utils import matting as matting_lib
+        from .utils import matting as matting_lib
         if not matting_lib.available():
             raise RuntimeError(
                 "matting='grabcut' needs the native min-cut solver (build "

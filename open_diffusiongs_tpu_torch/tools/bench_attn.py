@@ -6,9 +6,10 @@ and the scalar-max packed forward (the `smax` rows of tools/bench_attn3.py).
       [--heads 16] [--iters 20] [--check]
 
 Prints one JSON line: per variant the mean device ms over `--iters`
-launches (CUDA events, after warm-up) and the executed TFLOP/s at
-4·L²·h·d (bench_attn2 :209), with the card's name and power limit.  No
-peak share: bench_attn2's PEAK_BF16 is a TPU figure.  `--check` runs
+launches (CUDA events, after warm-up) and the function's TFLOP/s at
+4·L²·h·d (bench_attn2's count, :209; the f32-P variants run three bf16
+products, 6·L²·h·d, on the tensor cores), with the card's name and power
+limit.  No peak share: bench_attn2's PEAK_BF16 is a TPU figure.  `--check` runs
 bench_attn2's check case (700 real rows padded with zeros to 1024, 16 heads
 of 64) through every variant and holds it against its plain twin (max abs
 error < 2e-2, bench_attn2 :176).  Needs a CUDA device.
@@ -37,7 +38,7 @@ D = 64
 TPU_KNOBS = ("ATTN_BLOCKS", "ATTN_SPECS", "ATTN_V2")
 NOTE = ("The TPU tools' block-size specs (ATTN_BLOCKS / ATTN_SPECS: bq, bkv, "
         "pad, gc; ATTN_V2) do not apply and are not read: the GPU kernels "
-        "run fixed 64-row q tiles over 64-key tiles and pad nothing.  The "
+        "run fixed 128-row q tiles over 128-key tiles and pad nothing.  The "
         "TPU's `sub` (tile / bcast) switch gives identical results and has "
         "no counterpart.")
 
@@ -108,9 +109,9 @@ def _ms(fn, iters: int, warmup: int = 2) -> float:
 
 def sweep(dev, l: int, heads: int = 16, iters: int = 20, seed: int = 0
           ) -> dict:
-    """ms and executed TFLOP/s of each variant at L = l (no padding: every
-    row real) and of the scalar-max forward on column slices of a fused
-    qkv, as the DiT hands it."""
+    """ms and the function's TFLOP/s of each variant at L = l (no padding:
+    every row real) and of the scalar-max forward on column slices of a
+    fused qkv, as the DiT hands it."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     qs, k, v, q = _qkv(gen, dev, heads, l, l)
     flop = 4.0 * l * l * heads * D

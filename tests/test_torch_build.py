@@ -1,5 +1,7 @@
 """The port's CUDA launch functions against their ctypes signatures, and the
-host-side rules of the packed attention wrappers (CPU only).
+host-side rules of the attention wrappers (CPU only): TMA's alignment rule,
+the packed backward's stats layout, q~'s rounding, and which [b, l, h, d]
+views the general-route kernel reads as they lie.
 
 `ops/_build.py::SIGNATURES` tells ctypes the argument types of every
 `extern "C" int odgs_*` function in `open_diffusiongs_tpu_torch/csrc/*.cu`.
@@ -76,6 +78,18 @@ def test_headers_take_part_in_the_build_hash(tmp_path, monkeypatch):
     assert _build.build_dir() != before
 
 
+def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """ptxas's report of a source is read from the build of the current
+    sources, and missing when that build has not run."""
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    assert "-v" in _build.COMPILE_FLAGS
+    with pytest.raises(FileNotFoundError):
+        _build.build_log("flash_full_fwd.cu")
+    _build.build_dir().mkdir(parents=True)
+    (_build.build_dir() / "flash_full_fwd.log").write_text("ptxas info")
+    assert _build.build_log("flash_full_fwd.cu") == "ptxas info"
+
+
 @pytest.mark.parametrize("ptr,strides,itemsize,ok", [
     (0, (3 * 1024, 1), 2, True),          # a column slice of a fused qkv
     (4096 + 2048, (1024, 1), 2, True),    # slice at column 1024 (bf16)
@@ -109,11 +123,13 @@ def test_stats_by_head_layout():
     assert (y[..., 5:] == 0).all()
 
 
-@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu"])
+@pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
+                                  "flash_full_fwd.cu"])
 def test_packed_attention_sources_are_wgmma_tma(name):
-    """The packed kernels issue wgmma fed by TMA through mbarriers (the PTX
-    lives in hopper.cuh); no mma.sync path is left, and the backward takes
-    no atomics (its outputs are bit-identical across launches)."""
+    """The attention kernels (packed and general route) issue wgmma fed by
+    TMA through mbarriers (the PTX lives in hopper.cuh); no mma.sync path is
+    left, and the backward takes no atomics (its outputs are bit-identical
+    across launches)."""
     src = (_build.CSRC / name).read_text()
     header = (_build.CSRC / "hopper.cuh").read_text()
     assert '#include "hopper.cuh"' in src
@@ -124,6 +140,109 @@ def test_packed_attention_sources_are_wgmma_tma(name):
     assert not re.search(r"\bmma\.sync\.aligned", src + header)
     if name == "flash_attn_bwd.cu":
         assert "atomic" not in src.lower()
+
+
+def _fused_views(b, l, h, d):
+    """q, k, v [b, l, h, d]: column slices of one fused bf16 qkv, viewed
+    per head as the DiT's general route hands them to the kernel."""
+    qkv = torch.zeros((b, l, 3 * h * d), dtype=torch.bfloat16)
+    return tuple(x.reshape(b, l, h, d) for x in qkv.chunk(3, dim=-1))
+
+
+def _takes(x) -> bool:
+    return attention.full_takes_view(x.data_ptr(), x.shape, x.stride(),
+                                     x.element_size())
+
+
+@pytest.mark.parametrize("b,l,h,d,direct", [
+    (1, 4098, 16, 64, True),     # the flagship width, fused qkv slices
+    (1, 4098, 16, 48, True),     # 96-byte heads in a 64-wide tile
+    (2, 700, 3, 40, True),       # 80-byte heads
+    (1, 1100, 5, 20, False),     # 40-byte heads: rows not 16-byte aligned
+    (2, 33, 3, 7, False),        # odd d
+    (1, 64, 2, 16, True),
+])
+def test_full_layout_rule_on_fused_slices(b, l, h, d, direct):
+    """Which [b, l, h, d] views the general-route kernel reads through TMA
+    as they lie, and which take the wrapper's padded copy: a rule on shapes
+    and strides alone, the same for q, k and v."""
+    for x in _fused_views(b, l, h, d):
+        assert _takes(x) is direct
+
+
+def test_full_layout_rule_subset_halves_and_bench_layout():
+    q, k, v = _fused_views(1, 4098, 16, 64)
+    assert _takes(q[:, :1026]) and _takes(k[:, :1026])     # first half
+    assert _takes(q[:, 1026:]) and _takes(k)                # second half
+    q20 = _fused_views(1, 300, 5, 20)[0]
+    assert not _takes(q20[:, 100:])
+    # mha_full's [h, L, 64] as h batch elements of one head
+    x = torch.zeros((16, 4098, 64), dtype=torch.bfloat16)
+    assert _takes(x.unsqueeze(2))
+    assert not _takes(x[..., 4:].unsqueeze(2))              # d = 60: 120 B
+    assert not _takes(x.transpose(1, 2).unsqueeze(2))       # last dim strided
+
+
+@pytest.mark.parametrize("ptr,shape,strides,ok", [
+    (0, (1, 10, 4, 64), (7680, 768, 64, 1), True),
+    (8, (1, 10, 4, 64), (7680, 768, 64, 1), False),     # base 8-byte aligned
+    (0, (2, 10, 4, 64), (7684, 768, 64, 1), False),     # batch stride
+    (0, (1, 10, 4, 64), (7684, 768, 64, 1), True),      # ... of one element
+    (0, (1, 1, 4, 64), (1, 1, 64, 1), True),            # one row
+    (0, (1, 10, 1, 64), (640, 64, 3, 1), True),         # one head
+    (0, (1, 10, 4, 64), (7680, 768, 68, 1), False),     # head stride 136 B
+])
+def test_full_takes_view_strides(ptr, shape, strides, ok):
+    """Strides of dimensions of extent 1 are never used (the kernel's map
+    replaces them), every other one must be a multiple of 16 bytes."""
+    assert attention.full_takes_view(ptr, shape, strides, 2) is ok
+
+
+@pytest.mark.parametrize("d,width", [(64, 64), (48, 64), (40, 64), (33, 64),
+                                     (32, 32), (20, 32), (17, 32), (16, 16),
+                                     (7, 16), (1, 16)])
+def test_full_operands_pad_to_the_tile(d, width):
+    """Views the kernel takes pass through untouched (the maps read d
+    columns); otherwise every operand becomes a contiguous copy zero past d,
+    `width` columns wide, which the kernel always takes."""
+    assert attention.full_tile_width(d) == width
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn((2, 9, 3 * 3 * d), generator=g).to(torch.bfloat16)
+    xs = tuple(x.reshape(2, 9, 3, d) for x in qkv.chunk(3, dim=-1))
+    ops, dm = attention._full_operands(*xs)
+    if all(_takes(x) for x in xs):
+        assert dm == d and all(o is x for o, x in zip(ops, xs))
+        return
+    assert dm == width
+    for o, x in zip(ops, xs):
+        assert o.shape == (2, 9, 3, width) and o.is_contiguous() and _takes(o)
+        assert torch.equal(o[..., :d], x) and not o[..., d:].any()
+
+
+def test_full_operands_pad_all_three_together():
+    """One refused view pads all three, so the maps share one width."""
+    q, _, v = _fused_views(1, 16, 2, 64)
+    raw = torch.zeros(16 * 2 * 64 + 4, dtype=torch.bfloat16)
+    k = raw[4:].view(1, 16, 2, 64)                  # base 8-byte aligned
+    assert _takes(q) and _takes(v) and not _takes(k)
+    ops, dm = attention._full_operands(q, k, v)
+    assert dm == 64 and all(o.shape == q.shape and o.is_contiguous()
+                            and o.data_ptr() != x.data_ptr()
+                            for o, x in zip(ops, (q, k, v)))
+
+
+def test_split_p_carries_p_to_2_pow_minus_16():
+    """flash_full_fwd.cu's f32 P·V: P_hi = P with its low 16 bits cleared,
+    P_lo = bf16_rn(P - P_hi); P_hi + P_lo is within 2^-16 P of P, over P
+    from 2^-100 to 1 (a row's largest P is 1; below 2^-100 the f32
+    subnormals of P - P_hi add an absolute error of at most 2^-133)."""
+    g = torch.Generator().manual_seed(0)
+    p = torch.exp2(-100 * torch.rand(1_000_000, generator=g))
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert torch.equal(hi.to(torch.bfloat16).float(), hi)     # bf16-exact
+    assert ((p - hi - lo).abs() <= p * 2.0 ** -16).all()
+    assert ((p - hi).abs() < p * 2.0 ** -7).all()
 
 
 @pytest.mark.parametrize("dh", attention.PACKED_DH)
