@@ -13,14 +13,23 @@ Phases, one summary line each (every failure raises and exits non-zero):
                bf16 inputs at the 256^2 DiT shape (L = 4098, 16 heads of 64)
                and on a ragged layout (Lp > l_real, garbage pad rows);
                timed beside its plain twin and SDPA's forward;
-  4. blend     the tile-blend kernel against blend_tiles_ref on one real
-               256^2 view (random-init denoiser Gaussians, binned by the
-               port);
+  4. blend     the tile-blend kernel against blend_tiles_ref (outputs at
+               atol 2e-5; end slots equal but where a stop flips within
+               rounding of 1e-4, END_FLIP_*) on three views of the
+               random-init denoiser's Gaussians, binned by the port: 256^2
+               at init statistics, and 256^2 and 512^2 at trained
+               statistics (the raw-head offsets of bench.py:43-51, set
+               for the view and restored); timed by CUDA-graph replay and
+               as wrapper calls;
+               per view the (pixel, candidate) pairs examined and live,
+               the warp-candidates walked and culled, mean count and the
+               overflow counters;
   5. main path configs/diffusionGS_rel.yaml (width 1024, 24 layers, 30
                steps, 4 views) with random weights from seed 0, through
                DiffusionGSPipeline.batch on extra_files/test_cases/sphere.png
                at 256^2, twice; the second run is timed and its kernel
-               launches counted;
+               launches counted; a third, under torch.profiler, gives
+               device ms per asset and the blend kernel's part;
   6. attention training kernels
                the forward-with-lse and the backward kernels against
                flash_mha_packed_ref(with_stats=True) /
@@ -37,19 +46,23 @@ Phases, one summary line each (every failure raises and exits non-zero):
                and split by kernel (device ms per call of the hand-written
                kernels and the plain-torch glue, torch.profiler);
   7. blend backward
-               the blend backward kernel against blend_bwd_ref on phase
-               4's view with mean-squared cotangents against a seeded
-               random target (atol 2e-5, rtol 2e-4, and max|err| / max|ref|
-               1e-5); the table gradient d_packed through BlendTiles
-               twice, bit-identical (phase 4 also counts the (pixel,
-               candidate) pairs the view needs, for both blend bounds);
+               the blend backward kernel (bounded by the forward's end
+               slots) against blend_bwd_ref on each of phase 4's views
+               with mean-squared cotangents against a seeded random target
+               (atol 2e-5, rtol 2e-4, and max|err| / max|ref| 1e-5); the
+               table gradient d_packed through BlendTiles twice,
+               bit-identical; the same rows bit for bit without the end
+               slots; timed as phase 4 (phase 4 also counts the (pixel,
+               candidate) pairs each view needs, for both blend bounds);
   8. train path
                the same config with system.use_lpips false, random weights
                from seed 0, AdamW / cosine / clip 0.5 / EMA 0.9999 from the
                config, a b = 4 batch of 4 input + 4 supervision views at
                256^2 built in memory, from step 151 (every loss term
                weighted): 1 warm-up step and 3 timed steps; kernel
-               launches counted and held against the derived counts;
+               launches counted and held against the derived counts; one
+               more step under torch.profiler: device ms per step and the
+               blend kernels' part;
   9. general attention route
                a. the general-route kernel (flash_full_mha) against its
                   plain twin on bf16 q/k/v slices of a fused qkv at
@@ -97,7 +110,9 @@ Phases, one summary line each (every failure raises and exits non-zero):
 Then the kernels' JSON line (each kernel's launches on its main path, max
 abs error, ms, plain ms, bound ms and what sets it, from this run's shapes
 and data at the H100's published peaks, and the one-call PyTorch time or
-null), the card line, and the result line {"ok": true, "device": {...}}.
+null; the blend rows at the init view, with their trained-statistics times
+and bounds beside), the card line, and the result line {"ok": true,
+"device": {...}}.
 Imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -138,12 +153,23 @@ DO_SCALES = (1.0, 2.0, 0.5, 1.5)
 # once) over the memory rate.
 PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
-# f32 operations one examined (pixel, candidate) pair of the blend needs:
-# the power (11), the exponential and alpha (3), the transmittance test
-# (2); the backward re-walk adds the gradient of alpha and of the
-# candidate's 10 attributes (~40 multiply-adds, csrc/blend_bwd.cu).
-BLEND_FWD_OPS_PER_PAIR = 16
-BLEND_BWD_OPS_PER_PAIR = 16 + 80
+# f32 operations of the blend: every examined (pixel, candidate) pair
+# needs the power (11), the exponential and alpha (3) and the transmittance
+# test (2); a live pair (one the pixel blends) adds, in the forward, its
+# colour and depth (4 multiply-adds) and, in the backward re-walk, the
+# gradient of alpha and of the candidate's 10 attributes (~40
+# multiply-adds, csrc/blend_bwd.cu).
+BLEND_OPS_PER_PAIR = 16
+BLEND_FWD_OPS_PER_LIVE_PAIR = 8
+BLEND_BWD_OPS_PER_LIVE_PAIR = 80
+# End slots of the forward kernel and its twin may differ only where a
+# pixel's stop flips between the kernel's sequential transmittance product
+# and the twin's prefix products: at the earlier of the two slots
+# |T (1 - alpha) - 1e-4| / 1e-4, with T walked in float64, stays below
+# this (f32 products over ~1000 factors drift by < 1e-4 relative), and
+# such pixels are few.
+END_FLIP_REL_BOUND = 1e-3
+END_FLIP_MAX_PIXELS = 64
 
 
 def card_line() -> str:
@@ -164,6 +190,32 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn()'s launches, replayed from a CUDA
+    graph `iters` times: the kernels' time without the host's (a wrapper
+    that takes longer on the host than its kernel on the card would
+    otherwise time the host)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -226,11 +278,12 @@ def blend_walk(torch, packed, idx, counts, tiles_x, tile_chunk=16):
     counts[t]); the transmittance test is taken in log space, so a pixel
     right at the 1e-4 threshold may count one candidate more or less than
     the kernel's sequential product.  Returns (examined pairs, rows read:
-    per tile the candidates up to its deepest pixel)."""
+    per tile the candidates up to its deepest pixel, live pairs: those a
+    pixel blends, in front of its stop)."""
     num_tiles, k = idx.shape
     pix = torch.arange(256, device=idx.device)
     slot = torch.arange(k, device=idx.device)
-    pairs = rows = 0
+    pairs = rows = live_pairs = 0
     for t0 in range(0, num_tiles, tile_chunk):
         t = torch.arange(t0, min(t0 + tile_chunk, num_tiles),
                          device=idx.device)
@@ -252,7 +305,9 @@ def blend_walk(torch, packed, idx, counts, tiles_x, tile_chunk=16):
                             counts[t][:, None].long())
         pairs += int(first.sum())
         rows += int(first.amax(-1).sum())
-    return pairs, rows
+        live_pairs += int((valid & (torch.cumsum(stop.int(), -1) == 0))
+                          .sum())
+    return pairs, rows, live_pairs
 
 
 def phase_device(torch) -> dict:
@@ -347,65 +402,168 @@ def build_system(torch, dev):
     return system
 
 
-def phase_blend(torch, dev, system) -> dict:
-    """One 256^2 view of a random-init denoiser's Gaussians (t = T-1 step,
-    view 1), preprocessed and binned by the port."""
+def trained_stat_offsets(res: int):
+    """Raw-head offsets that place a random-weights model's Gaussians at
+    trained statistics (bench.py:43-51): ~1.5 px footprints at the orbit
+    camera (depth ~3, fov 40 degrees), opacity ~ sigmoid(1)."""
+    import math
+    f = 0.5 * res / math.tan(math.radians(40.0) / 2)
+    return math.log(1.5 * 3.0 / f) + 2.3, 3.0
+
+
+def blend_view(torch, dev, system, res: int, trained: bool = False) -> dict:
+    """One res^2 view of a random-init denoiser's Gaussians (t = T-1 step,
+    view 1), preprocessed and binned by the port; with `trained` the
+    denoiser's raw-head offsets are set to trained statistics for the
+    view and restored after it."""
     from PIL import Image
 
-    from open_diffusiongs_tpu_torch.ops import blend_kernel, gs_math
     from open_diffusiongs_tpu_torch.ops import camera as cam_lib
+    from open_diffusiongs_tpu_torch.ops import gs_math
     from open_diffusiongs_tpu_torch.ops import rasterize as rz
     from open_diffusiongs_tpu_torch.ops.rays import rays_chw
     from open_diffusiongs_tpu_torch.pipeline import (object_camera_template,
                                                      preprocess_image)
-    cond = preprocess_image(Image.open(IMAGE), 0.85, RES, matting="border")
-    c2ws, fxy = object_camera_template(N_VIEWS, h=RES, w=RES)
+    cond = preprocess_image(Image.open(IMAGE), 0.85, res, matting="border")
+    c2ws, fxy = object_camera_template(N_VIEWS, h=res, w=res)
     c2w = torch.from_numpy(c2ws).to(dev)[None]
     fxy_t = torch.from_numpy(fxy).to(dev)[None]
     gen = torch.Generator(device=dev).manual_seed(1)
     images = torch.cat([torch.from_numpy(cond).to(dev)[None, None],
-                        torch.randn((1, N_VIEWS - 1, 3, RES, RES),
+                        torch.randn((1, N_VIEWS - 1, 3, res, res),
                                     generator=gen, device=dev)], 1)
-    ray_o, ray_d = rays_chw(c2w, fxy_t, RES, RES)
+    ray_o, ray_d = rays_chw(c2w, fxy_t, res, res)
     t = torch.as_tensor(system.sched_infer.timestep_map[-1:], device=dev)
-    with torch.no_grad():
-        g, _ = system.model(images, ray_o, ray_d, t)
+    model = system.model
+    saved = (model.gs_raw_offset_scaling, model.gs_raw_offset_opacity)
+    if trained:
+        (model.gs_raw_offset_scaling,
+         model.gs_raw_offset_opacity) = trained_stat_offsets(res)
+    try:
+        with torch.no_grad():
+            g, _ = model(images, ray_o, ray_d, t)
+    finally:
+        model.gs_raw_offset_scaling, model.gs_raw_offset_opacity = saved
     act = rz.Gaussians(*(x[0] for x in g)).activate()
     cov3d = gs_math.build_cov3d(act.scaling, act.rotation)
     cam = cam_lib.CameraParams(*(x[0, 1] for x in cam_lib.make_camera(
-        c2w, fxy_t, RES, RES)))
-    pre = rz.preprocess_view(act, cov3d, cam, RES, RES, g.sh_degree)
+        c2w, fxy_t, res, res)))
+    pre = rz.preprocess_view(act, cov3d, cam, res, res, g.sh_degree)
     pre, _ = rz._clip_rect_centered(pre, system.cfg.raster
                                     .max_tiles_per_gaussian)
-    tiles_x = RES // rz.TILE
-    bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, system.cfg.raster)
-    packed = rz.pack_rows(pre)
+    tiles_x = res // rz.TILE
+    bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, system.cfg.raster,
+                                grad_map=True)
+    return {"name": f"{'trained' if trained else 'init'} {res}^2",
+            "packed": rz.pack_rows(pre).detach(), "bins": bins,
+            "tiles_x": tiles_x, "res": res}
+
+
+def blend_culls(torch, view, n_end) -> dict:
+    """Warp-candidates the kernels walk and those the cull removes: per
+    warp the forward walks slots up to its deepest pixel's end slot
+    (through it when that pixel stopped), the backward up to it."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    bins = view["bins"]
+    mask = blend_kernel.cull_mask(view["packed"], bins.idx, bins.counts,
+                                  view["tiles_x"])                # [T, 8, K]
+    wend = n_end[:, blend_kernel.warp_pixels(n_end.device)].amax(-1).long()
+    counts = bins.counts[:, None].long()
+    slot = torch.arange(bins.idx.shape[1], device=n_end.device)
+    out = {}
+    for name, walked in (("fwd", torch.minimum(wend + 1, counts)),
+                         ("bwd", wend)):
+        inside = slot < walked[..., None]
+        out[f"{name}_warp_candidates"] = int(inside.sum())
+        out[f"{name}_warp_candidates_culled"] = int((mask & inside).sum())
+        out[f"{name}_longest_warp_walk"] = int(walked.max())
+        out[f"{name}_longest_warp_walk_after_cull"] = int(
+            (inside & ~mask).sum(-1).max())
+    return out
+
+
+def end_slot_flips(torch, view, n_end, n_end_ref) -> list:
+    """|T (1 - alpha) - 1e-4| / 1e-4 at the earlier end slot of each pixel
+    whose end slots differ between the kernel and its twin: alpha in f32
+    as the kernels form it, T the product in front of it in float64.  A
+    stop that flips by rounding reads near 0; a wrong end slot does not."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel as bk
+    packed, idx, tiles_x = view["packed"], view["bins"].idx, view["tiles_x"]
+    out = []
+    for t, p in (n_end != n_end_ref).nonzero().tolist():
+        s = int(min(n_end[t, p], n_end_ref[t, p]))
+        a = packed[idx[t, :s + 1].long()]
+        dx = a[:, 0] - float((t % tiles_x) * bk.TILE + p % bk.TILE)
+        dy = a[:, 1] - float((t // tiles_x) * bk.TILE + p // bk.TILE)
+        power = (-0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy)
+                 - a[:, 3] * dx * dy)
+        alpha = torch.clamp(a[:, 8] * torch.exp(power), max=bk.ALPHA_MAX)
+        blend = (power <= 0) & (alpha >= bk.ALPHA_MIN)
+        one_minus = torch.where(blend, 1.0 - alpha.double(), 1.0)
+        test_t = one_minus[:-1].prod() * one_minus[-1]
+        out.append(float((test_t - bk.EARLY_STOP_T).abs() / bk.EARLY_STOP_T)
+                   if bool(blend[-1]) else float("inf"))
+    return out
+
+
+def blend_fwd_case(torch, view) -> dict:
+    """The forward kernel against blend_tiles_ref on one view (outputs and
+    end slots), timed beside the plain twin."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    packed, bins, tiles_x = view["packed"], view["bins"], view["tiles_x"]
     args = (packed, bins.idx, bins.counts, tiles_x)
-    out = blend_kernel.blend_tiles(*args)
-    ref = blend_kernel.blend_tiles_ref(*args)
+    out = blend_kernel.blend_tiles(*args, return_end=True)
+    ref = blend_kernel.blend_tiles_ref(*args, return_end=True)
     torch.cuda.synchronize()
-    errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
-    ms = cuda_ms(lambda: blend_kernel.blend_tiles(*args), 20)
+    errs = [float((a - b).abs().max()) for a, b in zip(out[:3], ref[:3])]
+    n_flips = int((out[3] != ref[3]).sum())
+    flips = (end_slot_flips(torch, view, out[3], ref[3])
+             if n_flips <= END_FLIP_MAX_PIXELS else [])
+    ms = graph_ms(lambda: blend_kernel.blend_tiles(*args), 50)
+    wrapper_ms = cuda_ms(lambda: blend_kernel.blend_tiles(*args), 20)
     plain_ms = cuda_ms(lambda: blend_kernel.blend_tiles_ref(*args), 2)
-    pairs, rows = blend_walk(torch, packed, bins.idx, bins.counts, tiles_x)
+    pairs, rows, live = blend_walk(torch, packed, bins.idx, bins.counts,
+                                   tiles_x)
     n_tiles = bins.idx.shape[0]
-    # candidate rows (10 f32) and their indices, counts; t_fin, acc_c (3)
-    # and acc_d written per pixel
-    nbytes = rows * 44 + n_tiles * 4 + n_tiles * 256 * 5 * 4
-    res = {"max_abs_err": max(errs), "err_t_fin": errs[0],
-           "err_acc_c": errs[1], "err_acc_d": errs[2],
-           "ms": ms, "plain_ms": plain_ms, "examined_pairs": pairs,
-           "rows_read": rows,
-           **bound({"f32": pairs * BLEND_FWD_OPS_PER_PAIR}, nbytes),
-           "shape": f"T={bins.idx.shape[0]} K={bins.idx.shape[1]} "
+    # candidate rows (10 f32) and their indices, counts; t_fin, acc_c (3),
+    # acc_d and n_end written per pixel
+    nbytes = rows * 44 + n_tiles * 4 + n_tiles * 256 * 6 * 4
+    view.update(n_end=out[3], fwd=out[:3], pairs=pairs, rows=rows,
+                live=live)
+    res = {"view": view["name"], "max_abs_err": max(errs),
+           "err_t_fin": errs[0], "err_acc_c": errs[1], "err_acc_d": errs[2],
+           "n_end_mismatch_pixels": n_flips,
+           "n_end_mismatch_rel_gap": flips,
+           "ms": ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "examined_pairs": pairs,
+           "live_pairs": live, "rows_read": rows,
+           **blend_culls(torch, view, out[3]),
+           **bound({"f32": pairs * BLEND_OPS_PER_PAIR
+                    + live * BLEND_FWD_OPS_PER_LIVE_PAIR}, nbytes),
+           "shape": f"T={n_tiles} K={bins.idx.shape[1]} "
                     f"N={packed.shape[0] - 1}",
            "mean_count": float(bins.counts.float().mean()),
-           "overflow_gaussians": int(bins.overflow_gaussians)}
+           "overflow_gaussians": int(bins.overflow_gaussians),
+           "overflow_tiles": int(bins.overflow_tiles)}
     print(f"[4 blend] {json.dumps(res)}", flush=True)
     if not max(errs) <= BLEND_ABS_BOUND:
-        raise AssertionError(f"blend kernel: max abs error {max(errs):.3g} "
-                             f"> {BLEND_ABS_BOUND}")
-    return res, (pre, tiles_x, pairs, rows)
+        raise AssertionError(f"blend kernel, {view['name']}: max abs error "
+                             f"{max(errs):.3g} > {BLEND_ABS_BOUND}")
+    if not (n_flips <= END_FLIP_MAX_PIXELS
+            and all(g <= END_FLIP_REL_BOUND for g in flips)):
+        raise AssertionError(f"blend kernel, {view['name']}: {n_flips} end "
+                             f"slots differ from the twin's, not by a stop "
+                             f"within rounding of 1e-4: {flips}")
+    return res
+
+
+def phase_blend(torch, dev, system):
+    """The forward kernel on one 256^2 view at init statistics and on a
+    256^2 and a 512^2 view at trained statistics."""
+    views = [blend_view(torch, dev, system, RES),
+             blend_view(torch, dev, system, RES, trained=True),
+             blend_view(torch, dev, system, 2 * RES, trained=True)]
+    return [blend_fwd_case(torch, v) for v in views], views
 
 
 def rel_max(out, ref) -> float:
@@ -550,18 +708,17 @@ def phase_attention_train(torch, dev) -> dict:
     return res
 
 
-def phase_blend_bwd(torch, dev, system, view) -> dict:
-    """Phase 4's view: cotangents of the mean-squared error of its render,
-    alpha and depth against a seeded random target, the backward kernel vs
-    its plain twin, and the table gradient through BlendTiles twice."""
+def blend_bwd_case(torch, dev, view) -> dict:
+    """Cotangents of the mean-squared error of the view's render, alpha and
+    depth against a seeded random target; the backward kernel (bounded by
+    the forward's end slots) vs its plain twin, and the table gradient
+    through BlendTiles twice."""
     from open_diffusiongs_tpu_torch.ops import blend_kernel
     from open_diffusiongs_tpu_torch.ops import rasterize as rz
-    pre, tiles_x, pairs, rows = view     # phase 4's walk: the same bins
-    bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, system.cfg.raster,
-                                grad_map=True)
-    packed = rz.pack_rows(pre).detach()
+    packed, bins, tiles_x = view["packed"], view["bins"], view["tiles_x"]
+    res_px = view["res"]
     gen = torch.Generator(device=dev).manual_seed(3)
-    target = torch.rand((RES, RES, 5), generator=gen, device=dev)
+    target = torch.rand((res_px, res_px, 5), generator=gen, device=dev)
     bg = torch.ones(3, device=dev)
 
     def l2(t_fin, acc_c, acc_d):     # mean-squared, as the training loss
@@ -570,12 +727,13 @@ def phase_blend_bwd(torch, dev, system, view) -> dict:
                 + ((a - target[..., 3]) ** 2).mean()
                 + ((d - target[..., 4]) ** 2).mean())
 
-    with torch.no_grad():
-        fwd = blend_kernel.blend_tiles(packed, bins.idx, bins.counts, tiles_x)
+    fwd = view["fwd"]
     leaves = [x.clone().requires_grad_(True) for x in fwd]
     cot = torch.autograd.grad(l2(*leaves), leaves)
     args = (packed, bins.idx, bins.counts, *fwd, *cot, tiles_x)
-    dg = blend_kernel.blend_bwd(*args)
+    n_end = view["n_end"]
+    dg = blend_kernel.blend_bwd(*args, n_end=n_end)
+    dg_unbounded = blend_kernel.blend_bwd(*args)
     ref = blend_kernel.blend_bwd_ref(*args)
     torch.cuda.synchronize()
     err = (dg - ref).abs()
@@ -588,39 +746,56 @@ def phase_blend_bwd(torch, dev, system, view) -> dict:
         return torch.autograd.grad(l2(*out), p)[0]
 
     d1, d2 = table_grad(), table_grad()
-    ms = cuda_ms(lambda: blend_kernel.blend_bwd(*args), 20)
+    ms = graph_ms(lambda: blend_kernel.blend_bwd(*args, n_end=n_end), 50)
+    wrapper_ms = cuda_ms(lambda: blend_kernel.blend_bwd(*args, n_end=n_end),
+                         20)
     plain_ms = cuda_ms(lambda: blend_kernel.blend_bwd_ref(*args), 1)
     n_tiles, k = bins.idx.shape
+    pairs, rows, live = view["pairs"], view["rows"], view["live"]
     # candidate rows and indices, counts, 10 f32 of forward outputs and
-    # cotangents per pixel read; dg [T, K, 10] f32 written
-    nbytes = (rows * 44 + n_tiles * 4 + n_tiles * 256 * 10 * 4
+    # cotangents and the end slot per pixel read; dg [T, K, 10] f32
+    # written
+    nbytes = (rows * 44 + n_tiles * 4 + n_tiles * 256 * 11 * 4
               + n_tiles * k * 10 * 4)
-    res = {"max_abs_err": float(err.max()),
-           "examined_pairs": pairs, "rows_read": rows,
-           **bound({"f32": pairs * BLEND_BWD_OPS_PER_PAIR}, nbytes),
+    res = {"view": view["name"], "max_abs_err": float(err.max()),
+           "examined_pairs": pairs, "live_pairs": live, "rows_read": rows,
+           **bound({"f32": pairs * BLEND_OPS_PER_PAIR
+                    + live * BLEND_BWD_OPS_PER_LIVE_PAIR}, nbytes),
            "max_ref": float(ref.abs().max()),
            "rel_max_err": float(err.max() / ref.abs().max()),
            "max_err_minus_rtol_ref": excess,
+           "without_end_slots_bit_identical": bool(torch.equal(
+               dg, dg_unbounded)),
            "nonzero_rows": int((dg != 0).any(-1).sum()),
            "d_packed_bit_identical": bool(torch.equal(d1, d2)),
            "d_packed_finite": bool(torch.isfinite(d1).all()),
-           "ms": ms, "plain_ms": plain_ms,
-           "shape": f"T={bins.idx.shape[0]} K={bins.idx.shape[1]} "
-                    f"N={packed.shape[0] - 1}"}
+           "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "shape": f"T={n_tiles} K={k} N={packed.shape[0] - 1}"}
     print(f"[7 blend backward] {json.dumps(res)}", flush=True)
+    name = view["name"]
     if not excess <= BLEND_BWD_TOL["atol"]:
-        raise AssertionError(f"blend backward: |err| - rtol*|ref| = "
-                             f"{excess:.3g} > atol {BLEND_BWD_TOL['atol']}")
+        raise AssertionError(f"blend backward, {name}: |err| - rtol*|ref| "
+                             f"= {excess:.3g} > atol "
+                             f"{BLEND_BWD_TOL['atol']}")
     if not res["rel_max_err"] <= BLEND_BWD_REL_BOUND:
-        raise AssertionError(f"blend backward: rel-max error "
+        raise AssertionError(f"blend backward, {name}: rel-max error "
                              f"{res['rel_max_err']:.3g} > "
                              f"{BLEND_BWD_REL_BOUND}")
+    if not res["without_end_slots_bit_identical"]:
+        raise AssertionError(f"blend backward, {name}: the rows bounded by "
+                             f"the end slots differ from the unbounded ones")
     if res["nonzero_rows"] == 0:
-        raise AssertionError("blend backward: every gradient row is zero")
+        raise AssertionError(f"blend backward, {name}: every gradient row "
+                             f"is zero")
     if not (res["d_packed_bit_identical"] and res["d_packed_finite"]):
-        raise AssertionError("blend backward: d_packed differs between two "
-                             "runs or is not finite")
+        raise AssertionError(f"blend backward, {name}: d_packed differs "
+                             f"between two runs or is not finite")
     return res
+
+
+def phase_blend_bwd(torch, dev, views) -> list:
+    """The backward kernel on phase 4's three views."""
+    return [blend_bwd_case(torch, dev, v) for v in views]
 
 
 def train_batch(torch, dev):
@@ -733,6 +908,14 @@ def phase_train(torch, dev) -> dict:
            "batch": f"b={TRAIN_BATCH}, {N_VIEWS}+{N_VIEWS} views at "
                     f"{RES}^2, from step {TRAIN_START_STEP}",
            "card": card_line()}
+    # device time of one more step, and the blend kernels' part of it
+    by_kernel = device_ms_by_kernel(
+        torch, lambda: train_step(state, batch), iters=1, warm_up=False)
+    res.update(device_ms_per_step=sum(by_kernel.values()),
+               blend_fwd_device_ms_per_step=kernel_ms(by_kernel,
+                                                      "blend_fwd_kernel"),
+               blend_bwd_device_ms_per_step=kernel_ms(by_kernel,
+                                                      "blend_bwd_kernel"))
     print(f"[8 train path] {json.dumps(res)}", flush=True)
     if launches != want:
         raise AssertionError(f"train kernel launches {launches} != {want}")
@@ -778,8 +961,15 @@ def phase_main(torch, dev, system) -> dict:
     n_layers = len(system.model.transformer)
     want = {"attention": n_layers * STEPS,
             "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS}
+    # the device's share of one more asset and the blend kernel's part of
+    # it (kernel time summed over the asset: one stream, so busy time)
+    by_kernel = device_ms_by_kernel(torch, lambda: pipe.batch([IMAGE], **kw),
+                                    iters=1, warm_up=False)
     g = out.gaussians
     res = {"seconds_per_asset": secs,
+           "device_ms_per_asset": sum(by_kernel.values()),
+           "blend_device_ms_per_asset": kernel_ms(by_kernel,
+                                                  "blend_fwd_kernel"),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "launches": launches, "expected_launches": want,
            "gaussians_after_filters": int(g.xyz.shape[0]),
@@ -800,8 +990,19 @@ def phase_main(torch, dev, system) -> dict:
     return res
 
 
+def kernel_ms(by_kernel: dict, prefix: str) -> float:
+    return sum(ms for name, ms in by_kernel.items()
+               if name.startswith(prefix))
+
+
 def roof(res: dict) -> dict:
     return {"bound_ms": res["bound_ms"], "bound_by": res["bound_by"]}
+
+
+def trained_times(cases: list) -> dict:
+    """A blend row's times and bounds on the trained-statistics views."""
+    return {f"{k}_{c['view'].replace('^2', '').replace(' ', '_')}": c[k]
+            for c in cases[1:] for k in ("ms", "bound_ms")}
 
 
 def reset_launches(*modules) -> None:
@@ -1071,9 +1272,8 @@ def phase_general_sampling(torch, dev) -> dict:
     g = out.gaussians
     res = {"seconds_per_asset": secs,
            "device_ms_per_asset": sum(by_kernel.values()),
-           "general_kernel_device_ms_per_asset": sum(
-               ms for name, ms in by_kernel.items()
-               if name.startswith("flash_full_kernel")),
+           "general_kernel_device_ms_per_asset": kernel_ms(
+               by_kernel, "flash_full_kernel"),
            "max_memory_allocated_bytes": peak,
            "launches": launches, "expected_launches": want,
            "blend_launches": blend_launches,
@@ -1270,11 +1470,11 @@ def main() -> int:
     phase_build()
     attn = phase_attention(torch, dev)
     system = build_system(torch, dev)
-    blend, view = phase_blend(torch, dev, system)
+    blend, views = phase_blend(torch, dev, system)
     main_res = phase_main(torch, dev, system)
     attn_train = phase_attention_train(torch, dev)
-    blend_bwd = phase_blend_bwd(torch, dev, system, view)
-    del system, view
+    blend_bwd = phase_blend_bwd(torch, dev, views)
+    del system, views
     torch.cuda.empty_cache()
     train = phase_train(torch, dev)
     torch.cuda.empty_cache()
@@ -1308,8 +1508,9 @@ def main() -> int:
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
          "launches": main_res["launches"]["blend"],
-         "max_abs_err": blend["max_abs_err"], "ms": blend["ms"],
-         "plain_ms": blend["plain_ms"], **roof(blend), "library_ms": None},
+         "max_abs_err": max(r["max_abs_err"] for r in blend),
+         "ms": blend[0]["ms"], "plain_ms": blend[0]["plain_ms"],
+         **roof(blend[0]), "library_ms": None, **trained_times(blend)},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -1331,8 +1532,9 @@ def main() -> int:
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
          "launches": train["launches"]["blend_bwd"],
-         "max_abs_err": blend_bwd["max_abs_err"], "ms": blend_bwd["ms"],
-         "plain_ms": blend_bwd["plain_ms"], **roof(blend_bwd),
+         "max_abs_err": max(r["max_abs_err"] for r in blend_bwd),
+         "ms": blend_bwd[0]["ms"], "plain_ms": blend_bwd[0]["plain_ms"],
+         **roof(blend_bwd[0]), **trained_times(blend_bwd),
          "library_ms": None},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",

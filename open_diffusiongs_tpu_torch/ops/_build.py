@@ -61,11 +61,12 @@ SIGNATURES = {
     # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
     "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_L] * 14
                                 + [_P],
-    # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d, stream
-    "odgs_blend_fwd": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d,
-    # d_tfin, d_accc, d_accd, dg, stream
-    "odgs_blend_bwd": [_P, _P, _P, _I, _I, _I] + [_P] * 8,
+    # n_end, stream
+    "odgs_blend_fwd": [_P] * 3 + [_I] * 3 + [_P] * 5,
+    # packed, idx, counts, n_end (or None), num_tiles, k, tiles_x, t_fin,
+    # acc_c, acc_d, d_tfin, d_accc, d_accd, dg, stream
+    "odgs_blend_bwd": [_P] * 4 + [_I] * 3 + [_P] * 8,
 }
 
 

@@ -43,8 +43,26 @@ _SHAPE_MODEL_MAP = {
     "prior_distribution": None, "use_gssplat": None,
     "grad_checkpoint_every": None, "use_downsample": None,
     "num_latents": None, "range_setting_type": None,
+    # a set value is refused by build_system (WEIGHT_KEYS)
     "pretrained_model_name_or_path": None,
 }
+# stage-2 weight bootstraps (JAX builder.py:96-103, object_system.py:
+# 114-140): a truthy value raises until the port loads weights; missing,
+# null or empty builds, as JAX reads them with `if value:`
+WEIGHT_KEYS = ("shape_model.pretrained_model_name_or_path",
+               "system.weights", "system.weights_ignore_modules")
+
+
+def _refuse_weight_keys(system_cfg: Dict[str, Any]) -> None:
+    for key in WEIGHT_KEYS:
+        block, name = key.split(".")
+        cfg = (system_cfg if block == "system"
+               else system_cfg.get(block) or {})
+        if cfg.get(name):
+            raise NotImplementedError(
+                f"{key} (loading weights into the system) is not ported")
+
+
 # shape_model keys that steer TPU-only machinery (ignored, logged)
 TPU_ONLY_SHAPE_KEYS = ("use_flash", "remat_save_attn", "remat_save_mlp")
 LOSS_LAMBDAS = ("lambda_diffusion", "lambda_lpips", "lambda_ssim",
@@ -100,6 +118,7 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
     from .object_system import ObjectSystemConfig
 
     cfg = dict(system_cfg)
+    _refuse_weight_keys(cfg)
     ignored: list = []
     loss = dict(cfg.get("loss", {}))
     noise = dict(cfg.get("noise_scheduler", {}))

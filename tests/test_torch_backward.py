@@ -9,7 +9,8 @@
     gradients exactly 0;
   * `blend_bwd_ref` (the plain twin of blend_bwd.cu) against the JAX
     Pallas `blend_bwd_pallas` in interpret mode.  Bar: atol 2e-5 / rtol
-    2e-4 (tests/test_rasterize.py:307-326);
+    2e-4 (tests/test_rasterize.py:307-326); bounded by the forward's end
+    slots it gives the same rows bit for bit;
   * the port's `render` gradients with respect to the raw Gaussians against
     jax.grad of the JAX render, K >= N, centred clip.  Bar: atol 5e-4 of
     each field's largest gradient (tests/test_rasterize.py:114-132); two
@@ -136,8 +137,8 @@ def test_dit_attention_layer_reaches_qkv_weights():
     assert layer.qkv.weight.grad.abs().sum() > 0
 
 
-def _binned_view(rng, n=200, k=256):
-    g = random_gaussians(rng, 1, n, scale_mean=-2.5)
+def _binned_view(rng, n=200, k=256, scale_mean=-2.5):
+    g = random_gaussians(rng, 1, n, scale_mean=scale_mean)
     act = Gaussians(*(torch.from_numpy(np.array(x[0])) for x in g)
                     ).activate()
     c2ws, fxy = orbit_cameras(1, h=H, w=W)
@@ -262,3 +263,20 @@ def test_render_gradients_match_jax_and_are_deterministic(rng):
         np.testing.assert_allclose(a.numpy() / scale, r / scale, atol=5e-4,
                                    err_msg=name)
     assert first[0].abs().max() > 0
+
+
+def test_blend_bwd_ref_with_the_forward_end_slots_changes_no_gradient():
+    """The end slots the forward returns bound the re-walk and leave every
+    gradient row as it was; on a view where pixels stop early."""
+    rng = np.random.default_rng(9)
+    packed, bins = _binned_view(rng, n=400, scale_mean=-1.6)
+    t_fin, acc_c, acc_d, n_end = blend_kernel.blend_tiles(
+        packed, bins.idx, bins.counts, W // 16, return_end=True)
+    assert (n_end < bins.counts[:, None]).any()
+    cot = _cotangents(rng, bins.idx.shape[0])
+    args = (packed, bins.idx, bins.counts, t_fin, acc_c, acc_d, *cot, W // 16)
+    free = blend_kernel.blend_bwd_ref(*args)
+    bounded = blend_kernel.blend_bwd_ref(*args, n_end=n_end)
+    assert free.abs().max() > 0
+    assert torch.equal(bounded, free)
+    assert torch.equal(blend_kernel.blend_bwd(*args, n_end=n_end), free)

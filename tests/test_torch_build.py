@@ -275,3 +275,40 @@ def test_delta_by_head_matches_masked_cotangent(b, lp, l_real, h, dh):
     assert torch.equal(got[..., :l_real], want.transpose(1, 2)[..., :l_real])
     assert (got[..., l_real:] == 0).all()
     assert torch.equal(do, before)
+
+
+@pytest.mark.parametrize("name", ["blend_fwd.cu", "blend_bwd.cu"])
+def test_blend_sources_are_the_warp_ring_design(name):
+    """Both blends: warps walk independently (no block barrier in the walk:
+    the forward has none, the backward one, before its loops), stage rows
+    through a cp.async ring (the PTX lives in blend.cuh) and cull whole
+    candidates per warp rectangle.  The backward reduces over lanes with
+    one reduce-scatter (a single shuffle site, not ten butterflies) and
+    takes no atomics (dg is bit-identical across launches)."""
+    src = (_build.CSRC / name).read_text()
+    header = (_build.CSRC / "blend.cuh").read_text()
+    assert '#include "blend.cuh"' in src
+    for used in ("stage_rows(", "cp_async_wait<", "misses_rect(",
+                 "__ballot_sync", "rect_pixel("):
+        assert used in src, used
+    for ptx in ("cp.async.ca.shared.global", "cp.async.commit_group",
+                "cp.async.wait_group"):
+        assert ptx in header, ptx
+    barriers = src.count("__syncthreads")
+    if name == "blend_fwd.cu":
+        assert barriers == 0
+    else:
+        assert barriers == 1
+        assert "atomic" not in src.lower()
+        assert src.count("__shfl_xor_sync") == 1
+        assert "reduce_scatter(" in src
+        assert "mbar_wait(" in src and "mbar_arrive(" in src
+
+
+def test_blend_constants_match_the_kernels():
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    header = (_build.CSRC / "blend.cuh").read_text()
+    assert (f"RECT_W = {blend_kernel.RECT_W}, RECT_H = "
+            f"{blend_kernel.RECT_H};") in header
+    assert "CULL_RHO = 32.0f * FLT_EPSILON" in header
+    assert blend_kernel.CULL_RHO == 32 * torch.finfo(torch.float32).eps
