@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's object-sampling path, object training step and
-the DiT's general attention route once on one NVIDIA GPU.
+"""Drive the PyTorch port's object-sampling path, object training step,
+the DiT's general attention route and serving from a checkpoint at 256^2
+and 512^2 once on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -11,8 +12,10 @@ Phases, one summary line each (every failure raises and exits non-zero):
                (one nvcc per source, in parallel);
   3. attention the flash-attention kernel against flash_mha_packed_ref on
                bf16 inputs at the 256^2 DiT shape (L = 4098, 16 heads of 64)
-               and on a ragged layout (Lp > l_real, garbage pad rows);
-               timed beside its plain twin and SDPA's forward;
+               and on a ragged layout (Lp > l_real, garbage pad rows),
+               and at the 512^2 shape (L = 16386; the twin runs head by
+               head, as everywhere); timed beside its plain twin and
+               SDPA's forward, and at L = 16386 beside its bound and SDPA;
   4. blend     the tile-blend kernel against blend_tiles_ref (outputs at
                atol 2e-5; end slots equal but where a stop flips within
                rounding of 1e-4, END_FLIP_*) on three views of the
@@ -27,17 +30,22 @@ Phases, one summary line each (every failure raises and exits non-zero):
   5. main path configs/diffusionGS_rel.yaml (width 1024, 24 layers, 30
                steps, 4 views) with random weights from seed 0, through
                DiffusionGSPipeline.batch on extra_files/test_cases/sphere.png
-               at 256^2, twice; the second run is timed and its kernel
-               launches counted; a third, under torch.profiler, gives
-               device ms per asset and the blend kernel's part;
+               at 256^2, twice; the second run is timed, split into host
+               stages at synchronized edges (preprocess, camera template,
+               sampler, transfer, filters, PLY) and its kernel launches
+               counted; a third, under torch.profiler, gives device ms per
+               asset, the blend and attention kernels' parts, and the host
+               and device ms inside the sampler's "denoiser" and "render"
+               ranges;
   6. attention training kernels
                the forward-with-lse and the backward kernels against
                flash_mha_packed_ref(with_stats=True) /
                flash_mha_packed_bwd_ref at the train path's shape (b = 4,
                L = 4098, q/k/v column slices of a fused qkv, each batch
                element at its own scale) and on a ragged Lp = 4608
-               layout with 1e4 garbage in the pad rows of q/k/v and dO;
-               bounds, per batch element: o rel-max 8e-3, lse max abs 1e-3
+               layout with 1e4 garbage in the pad rows of q/k/v and dO,
+               and at the 512^2 train step's shape (b = 1, L = 16386);
+               the twins run head by head; bounds, per batch element: o rel-max 8e-3, lse max abs 1e-3
                (base-2 units), dq/dk/dv rel-max 1e-2 each, pad-row grads
                exactly 0; two backward launches on the same inputs must
                agree bit for bit and csrc/flash_attn_bwd.cu must hold no
@@ -107,11 +115,32 @@ Phases, one summary line each (every failure raises and exits non-zero):
                g. the packed kernels (forward with and without lse, scalar
                   max, backward) at small and ragged shapes off the main
                   path's tiling, dh 16, 32 and 64 (phase 6's bounds).
-Then the kernels' JSON line (each kernel's launches on its main path, max
+  10. load    a full-width checkpoint of configs/diffusionGS_rel_512.yaml's
+               denoiser from a seeded generator, in the reference's
+               Lightning layout, in a temporary directory (deleted at the
+               end): tools/make_pretrained_dir.py and
+               DiffusionGSPipeline.from_pretrained load it on the card, and
+               every loaded tensor equals its source bit for bit;
+  11. 512^2 sampling
+               phase 5's path at 512^2 (L = 16386, N = 1,048,578) from that
+               pipeline: at init statistics (warm-up, timed with the host
+               split, profiled) and at trained statistics through
+               from_pretrained's overrides (timed); launches
+               exactly 720 and 91, peak memory, the overflow counters;
+  12. 512^2 train step
+               phase 8 at 512^2, b = 1, from the 512^2 config with
+               system.weights set to phase 10's directory (three of its
+               tensors checked as loaded), no profiled step.
+Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
+collector ran inside them; each profiler session's garbage is collected
+as soon as it is read, outside them.
+Then the host split of one 256^2 and one 512^2 asset, each phase's host
+seconds, the kernels' JSON line (each kernel's launches on its main path, max
 abs error, ms, plain ms, bound ms and what sets it, from this run's shapes
 and data at the H100's published peaks, and the one-call PyTorch time or
 null; the blend rows at the init view, with their trained-statistics times
-and bounds beside), the card line, and the result line {"ok": true,
+and bounds beside; the 512^2 launches of each main-path kernel beside its
+256^2 ones), the card line, and the result line {"ok": true,
 "device": {...}}.
 Imports nothing of JAX.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -119,6 +148,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -129,6 +159,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "diffusionGS_rel.yaml")
+CONFIG_512 = os.path.join(ROOT, "configs", "diffusionGS_rel_512.yaml")
+# phase 12 checks these tensors came from phase 10's checkpoint
+SPOT_CHECK = ("transformer.0.attn.qkv.weight", "upsampler.linear.weight",
+              "image_token_decoder.linear.weight")
 IMAGE = os.path.join(ROOT, "extra_files", "test_cases", "sphere.png")
 
 ATTN_REL_BOUND = 8e-3    # max|err| / max|ref| in bf16 (the TPU kernel's bar)
@@ -140,6 +174,7 @@ BLEND_BWD_TOL = dict(atol=2e-5, rtol=2e-4)   # tests/test_rasterize.py:307-326
 # 256 pixels in another order agree to ~1e-6 of the largest row
 BLEND_BWD_REL_BOUND = 1e-5
 RES = 256
+RES_512 = 512
 N_VIEWS = 4
 STEPS = 30
 TRAIN_BATCH = 4          # the config's per-device batch_size
@@ -221,6 +256,40 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+class GcClock:
+    """Seconds the cyclic garbage collector runs while the context is open
+    (gc.callbacks): host time a timed window spent on garbage that is not
+    the window's own work."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+
+    def __enter__(self):
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+
+def collect_garbage() -> float:
+    """A full garbage collection now, and its seconds.  Called once a
+    torch.profiler session is dropped: its events (~10 Python objects
+    each, in reference cycles) are garbage that only a full collection
+    frees, which would otherwise run seconds long inside a later timed
+    window."""
+    t0 = time.perf_counter()
+    gc.collect()
+    return time.perf_counter() - t0
+
+
 def bound(ops: dict, nbytes: float) -> dict:
     """bound_ms and what sets it, from operations by type and bytes."""
     t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
@@ -269,6 +338,8 @@ def device_ms_by_kernel(torch, fn, iters: int = 10,
                           "", e.key)[:60]
             out[name] = (out.get(name, 0.0)
                          + e.self_device_time_total / 1e3 / iters)
+    del prof
+    collect_garbage()
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -339,9 +410,26 @@ def phase_build() -> float:
     return secs
 
 
+def twin_by_head(torch, twin, h, dh, *tensors, **kw):
+    """A plain attention twin run one head at a time, on each head's column
+    slice of its packed [b, Lp, h*dh] inputs (and the head's column of an
+    lse [b, Lp, h]), its outputs joined in the packed layout again: the
+    twin's result for all heads with one head's f32 score matrices alive
+    at a time (~1 GB each at L = 16386, where all 16 heads' are ~17 GB)."""
+    parts = []
+    for i in range(h):
+        out = twin(*(x[..., i:i + 1] if x.shape[-1] == h
+                     else x[..., i * dh:(i + 1) * dh] for x in tensors),
+                   num_heads=1, **kw)
+        parts.append(out if isinstance(out, tuple) else (out,))
+    joined = tuple(torch.cat(p, -1) for p in zip(*parts))
+    return joined if len(joined) > 1 else joined[0]
+
+
 def attention_case(torch, dev, gen, b, l_real, lp, h, dh, fused: bool,
                    scalar_max: bool = False):
-    """Kernel vs plain version on bf16 inputs; rows >= l_real hold 1e4."""
+    """Kernel vs plain version (run head by head) on bf16 inputs; rows >=
+    l_real hold 1e4."""
     from open_diffusiongs_tpu_torch.ops import attention
     hd = h * dh
     qkv = torch.randn((b, lp, 3 * hd), generator=gen, device=dev,
@@ -355,7 +443,8 @@ def attention_case(torch, dev, gen, b, l_real, lp, h, dh, fused: bool,
     if scalar_max:
         kw["scalar_max"] = True
     out = attention.flash_mha_packed(q, k, v, **kw)
-    ref = attention.flash_mha_packed_ref(q, k, v, **kw)
+    ref = twin_by_head(torch, attention.flash_mha_packed_ref, h, dh, q, k, v,
+                       **{n: x for n, x in kw.items() if n != "num_heads"})
     torch.cuda.synchronize()
     o, r = out[:, :l_real].float(), ref[:, :l_real].float()
     if not torch.isfinite(o).all():
@@ -380,25 +469,42 @@ def phase_attention(torch, dev) -> dict:
                        3)
     q4, k4, v4 = (x.reshape(1, l, 16, 64).transpose(1, 2) for x in (q, k, v))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+    # the 512^2 DiT's shape (L = 16386): against the twin, and timed
+    # beside its bound and SDPA
+    l5 = 2 + N_VIEWS * (RES_512 // 8) ** 2
+    err5, rel5, (q5, k5, v5), kw5 = attention_case(torch, dev, gen, 1, l5,
+                                                   l5, 16, 64, fused=True)
+    ms5 = cuda_ms(lambda: attention.flash_mha_packed(q5, k5, v5, **kw5), 10)
+    q5, k5, v5 = (x.reshape(1, l5, 16, 64).transpose(1, 2)
+                  for x in (q5, k5, v5))
+    sdpa_ms5 = cuda_ms(lambda: F.scaled_dot_product_attention(q5, k5, v5),
+                       10)
     res = {"max_abs_err": err, "rel_max_err": rel,
            "ragged_max_abs_err": err_r, "ragged_rel_max_err": rel_r,
            "ms": ms, "plain_ms": plain_ms, "sdpa_ms": sdpa_ms,
            **attn_fwd_bound(1, l, l, 16, 64),
-           "shape": f"b=1 L={l} h=16 dh=64 bf16"}
+           "shape": f"b=1 L={l} h=16 dh=64 bf16",
+           f"max_abs_err_L{l5}": err5, f"rel_max_err_L{l5}": rel5,
+           f"ms_L{l5}": ms5, f"sdpa_ms_L{l5}": sdpa_ms5,
+           f"bound_ms_L{l5}": attn_fwd_bound(1, l5, l5, 16, 64)["bound_ms"]}
     print(f"[3 attention] {json.dumps(res)}", flush=True)
-    for name, r in (("L=4098", rel), ("ragged Lp=4608", rel_r)):
+    for name, r in (("L=4098", rel), ("ragged Lp=4608", rel_r),
+                    (f"L={l5}", rel5)):
         if not r <= ATTN_REL_BOUND:
             raise AssertionError(f"attention kernel {name}: rel-max error "
                                  f"{r:.3g} > {ATTN_REL_BOUND}")
     return res
 
 
-def build_system(torch, dev):
-    from open_diffusiongs_tpu_torch.systems.builder import (build_system,
-                                                            load_config)
-    cfg = load_config(CONFIG)
-    system = build_system(cfg["system_type"], cfg["system"], device=dev)
+def build_system(torch, dev, config=CONFIG, overrides=()):
+    """The config's system on `dev`: random init from seed 0, then the
+    config's own weight bootstraps (load_pretrained)."""
+    from open_diffusiongs_tpu_torch.systems.builder import build_system
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    cfg = load_config(config, cli_args=list(overrides), makedirs=False)
+    system = build_system(cfg.system_type, cfg.system, device=dev)
     system.init_params(torch.Generator(device=dev).manual_seed(0))
+    system.load_pretrained()
     return system
 
 
@@ -590,10 +696,11 @@ def attention_train_case(torch, dev, gen, l_real, lp, h=16, dh=64,
     q, k, v = qkv.chunk(3, dim=-1)
     kw = dict(num_heads=h, l_real=l_real)
     o, lse = attention.flash_mha_packed(q, k, v, with_stats=True, **kw)
-    o_r, lse_r = attention.flash_mha_packed_ref(q, k, v, with_stats=True,
-                                                **kw)
+    o_r, lse_r = twin_by_head(torch, attention.flash_mha_packed_ref, h, dh,
+                              q, k, v, l_real=l_real, with_stats=True)
     grads = attention.flash_mha_packed_bwd(q, k, v, o, do, lse, **kw)
-    refs = attention.flash_mha_packed_bwd_ref(q, k, v, o, do, lse, **kw)
+    refs = twin_by_head(torch, attention.flash_mha_packed_bwd_ref, h, dh,
+                        q, k, v, o, do, lse, l_real=l_real)
     torch.cuda.synchronize()
 
     def rel(out, ref):          # the worst batch element
@@ -625,6 +732,9 @@ def phase_attention_train(torch, dev) -> dict:
     full, (q, k, v, o, do, lse, kw) = attention_train_case(torch, dev, gen,
                                                             l, l)
     ragged, _ = attention_train_case(torch, dev, gen, l, 4608)
+    # the 512^2 train step's shape (phase 12): b = 1, L = 16386
+    l5 = 2 + N_VIEWS * (RES_512 // 8) ** 2
+    full_512, _ = attention_train_case(torch, dev, gen, l5, l5, b=1)
     torch.cuda.empty_cache()
     b = TRAIN_BATCH
     fwd_ms = cuda_ms(lambda: attention.flash_mha_packed(
@@ -667,7 +777,7 @@ def phase_attention_train(torch, dev) -> dict:
     del out4
     sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 20)
-    res = {"full": full, "ragged_lp4608": ragged,
+    res = {"full": full, "ragged_lp4608": ragged, f"b1_L{l5}": full_512,
            "fwd_stats_ms": fwd_ms, "fwd_stats_plain_ms": fwd_plain_ms,
            "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
            "fwd_stats_kernels_ms": fwd_split, "bwd_kernels_ms": bwd_split,
@@ -688,7 +798,9 @@ def phase_attention_train(torch, dev) -> dict:
                              "f32(scale))")
     if not bwd_source_atomic_free:
         raise AssertionError("csrc/flash_attn_bwd.cu uses atomics")
-    for case, r in (("L=4098", full), ("ragged Lp=4608", ragged)):
+    cases = (("L=4098", full), ("ragged Lp=4608", ragged),
+             (f"b=1 L={l5}", full_512))
+    for case, r in cases:
         checks = [("o rel-max", r["o_rel_max"], ATTN_REL_BOUND),
                   ("lse max abs", r["lse_max_abs"], LSE_ABS_BOUND)]
         checks += [(f"{n} rel-max", r[f"{n}_rel_max"], GRAD_REL_BOUND)
@@ -701,9 +813,8 @@ def phase_attention_train(torch, dev) -> dict:
             if not r[f"{n}_pad_zero"]:
                 raise AssertionError(f"attention training {case}: {n} pad "
                                      f"rows are not exactly 0")
-    res["max_abs_err_fwd"] = max(full["lse_max_abs"],
-                                 ragged["lse_max_abs"])
-    res["max_abs_err_bwd"] = max(r[f"{n}_max_abs"] for r in (full, ragged)
+    res["max_abs_err_fwd"] = max(r["lse_max_abs"] for _, r in cases)
+    res["max_abs_err_bwd"] = max(r[f"{n}_max_abs"] for _, r in cases
                                  for n in ("dq", "dk", "dv"))
     return res
 
@@ -798,15 +909,15 @@ def phase_blend_bwd(torch, dev, views) -> list:
     return [blend_bwd_case(torch, dev, v) for v in views]
 
 
-def train_batch(torch, dev):
-    """b = 4, 4 input + 4 supervision views at 256^2, in memory: uniform
-    images from a numpy seed, the object camera template, depth 3.0, masks
-    of ones."""
+def train_batch(torch, dev, b: int, res: int):
+    """b objects of 4 input + 4 supervision views at res^2, in memory:
+    uniform images from a numpy seed, the object camera template, depth
+    3.0, masks of ones."""
     import numpy as np
 
     from open_diffusiongs_tpu_torch.pipeline import object_camera_template
-    b, v = TRAIN_BATCH, N_VIEWS
-    c2ws, fxy = object_camera_template(v, h=RES, w=RES)
+    v = N_VIEWS
+    c2ws, fxy = object_camera_template(v, h=res, w=res)
     rng = np.random.default_rng(0)
 
     def t(a):
@@ -815,29 +926,46 @@ def train_batch(torch, dev):
     cams = dict(c2ws=t(np.broadcast_to(c2ws, (b, v, 4, 4))),
                 fxfycxcys=t(np.broadcast_to(fxy, (b, v, 4))))
     return {
-        "rgbs_input": t(rng.uniform(size=(b, v, 3, RES, RES))),
+        "rgbs_input": t(rng.uniform(size=(b, v, 3, res, res))),
         "c2ws_input": cams["c2ws"], "fxfycxcys_input": cams["fxfycxcys"],
-        "depths_input": torch.full((b, v, 1, RES, RES), 3.0, device=dev),
-        "masks_input": torch.ones((b, v, 1, RES, RES), device=dev),
-        "rgbs": t(rng.uniform(size=(b, v, 3, RES, RES))),
-        "masks": torch.ones((b, v, 1, RES, RES), device=dev), **cams,
+        "depths_input": torch.full((b, v, 1, res, res), 3.0, device=dev),
+        "masks_input": torch.ones((b, v, 1, res, res), device=dev),
+        "rgbs": t(rng.uniform(size=(b, v, 3, res, res))),
+        "masks": torch.ones((b, v, 1, res, res), device=dev), **cams,
     }
 
 
-def phase_train(torch, dev) -> dict:
+def phase_train(torch, dev, label="8 train path", config=CONFIG,
+                overrides=(), profile=True, loaded=None) -> dict:
+    """The train step of `config` (+ dotlist `overrides`) on a batch of the
+    config's per-device batch_size objects at its training_res: 1 warm-up
+    and TRAIN_STEPS timed steps
+    from step 151, launches held against the derived counts, and (with
+    `profile`) one more step under torch.profiler.  `loaded`: tensors by
+    name that the config's weight bootstraps must have loaded.  The EMA
+    must move on every watched tensor that got a gradient (a tensor moved
+    only by weight decay moves by about an ulp, which the EMA's 1e-4 step
+    rounds away)."""
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
     from open_diffusiongs_tpu_torch.parallel.train_step import (
         init_train_state, make_optimizer, make_train_step)
     from open_diffusiongs_tpu_torch.systems.builder import (
-        build_optimizer_config, build_system, load_config)
-    cfg = load_config(CONFIG)
+        build_optimizer_config, build_system)
+    from open_diffusiongs_tpu_torch.utils.config import load_config
     # no LPIPS weights ship with the repo (as bench.py:108 runs it)
-    system_cfg = dict(cfg["system"], use_lpips=False)
-    system = build_system(cfg["system_type"], system_cfg, device=dev)
+    cfg = load_config(config, cli_args=["system.use_lpips=false",
+                                        *overrides], makedirs=False)
+    batch_size, res = cfg.data["batch_size"], cfg.data["training_res"][0]
+    system = build_system(cfg.system_type, cfg.system, device=dev)
     system.init_params(torch.Generator(device=dev).manual_seed(0))
+    system.load_pretrained()
     model = system.model
     params = dict(model.named_parameters())
-    opt_cfg = build_optimizer_config(cfg["system"], cfg["trainer"])
+    for name, value in (loaded or {}).items():
+        if not torch.equal(params[name], value):
+            raise AssertionError(f"{name} was not loaded by the config's "
+                                 f"weight bootstraps")
+    opt_cfg = build_optimizer_config(cfg.system, cfg.trainer)
     optimizer = make_optimizer(opt_cfg, params.items())
     state = init_train_state(params, optimizer, ema_decay=0.9999)
     state.step = TRAIN_START_STEP
@@ -845,7 +973,7 @@ def phase_train(torch, dev) -> dict:
     train_step = make_train_step(
         lambda batch, step: system.train_loss(batch, step, generator=gen),
         optimizer, ema_decay=0.9999)
-    batch = train_batch(torch, dev)
+    batch = train_batch(torch, dev, batch_size, res)
 
     state, _ = train_step(state, batch)                    # warm-up
     torch.cuda.synchronize()
@@ -859,10 +987,12 @@ def phase_train(torch, dev) -> dict:
     blend_kernel.LAUNCHES = blend_kernel.LAUNCHES_BWD = 0
     steps = []
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = train_step(state, batch)
-        torch.cuda.synchronize()
-        steps.append({"seconds": time.perf_counter() - t0,
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        steps.append({"seconds": secs, "gc_seconds": gc_clock.seconds,
                       "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]),
                       "lr": optimizer.lr()})
@@ -876,7 +1006,7 @@ def phase_train(torch, dev) -> dict:
     # its backward once; the render blends (and back-propagates) each of
     # the b x 4 supervision views once.
     n_layers = len(model.transformer)
-    views = TRAIN_BATCH * N_VIEWS
+    views = batch_size * N_VIEWS
     want = {"attention_fwd": 0,
             "attention_fwd_lse": TRAIN_STEPS * n_layers * 2,
             "attention_bwd": TRAIN_STEPS * n_layers,
@@ -889,8 +1019,8 @@ def phase_train(torch, dev) -> dict:
     # of every tile at init statistics and then get no gradient
     head_grad = {k: float(params[k].grad.norm()) for k in watch[1:]}
     secs = sum(s["seconds"] for s in steps) / len(steps)
-    res = {"steps": steps, "seconds_per_step": secs,
-           "samples_per_second": TRAIN_BATCH / secs,
+    out = {"steps": steps, "seconds_per_step": secs,
+           "samples_per_second": batch_size / secs,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "launches": launches, "expected_launches": want,
            "overflow_gaussians": int(m["overflow_gaussians"]),
@@ -905,20 +1035,20 @@ def phase_train(torch, dev) -> dict:
                             for k in watch},
            "ema_change": {k: float((state.ema_params[k] - ema_before[k])
                                    .abs().max()) for k in watch},
-           "batch": f"b={TRAIN_BATCH}, {N_VIEWS}+{N_VIEWS} views at "
-                    f"{RES}^2, from step {TRAIN_START_STEP}",
-           "card": card_line()}
-    # device time of one more step, and the blend kernels' part of it
-    by_kernel = device_ms_by_kernel(
-        torch, lambda: train_step(state, batch), iters=1, warm_up=False)
-    res.update(device_ms_per_step=sum(by_kernel.values()),
-               blend_fwd_device_ms_per_step=kernel_ms(by_kernel,
-                                                      "blend_fwd_kernel"),
-               blend_bwd_device_ms_per_step=kernel_ms(by_kernel,
-                                                      "blend_bwd_kernel"))
-    print(f"[8 train path] {json.dumps(res)}", flush=True)
-    if launches != want:
-        raise AssertionError(f"train kernel launches {launches} != {want}")
+           "batch": f"b={batch_size}, {N_VIEWS}+{N_VIEWS} views at "
+                    f"{res}^2, from step {TRAIN_START_STEP}",
+           "config": os.path.relpath(config, ROOT),
+           "overrides": list(overrides), "card": card_line()}
+    if profile:
+        # device time of one more step, and the blend kernels' part of it
+        by_kernel = device_ms_by_kernel(
+            torch, lambda: train_step(state, batch), iters=1, warm_up=False)
+        out.update(device_ms_per_step=sum(by_kernel.values()),
+                   blend_fwd_device_ms_per_step=kernel_ms(
+                       by_kernel, "blend_fwd_kernel"),
+                   blend_bwd_device_ms_per_step=kernel_ms(
+                       by_kernel, "blend_bwd_kernel"))
+    print(f"[{label}] {json.dumps(out)}", flush=True)
     if not all(torch.isfinite(torch.tensor(s["loss"])) for s in steps):
         raise AssertionError("non-finite training loss")
     if not all(torch.isfinite(p).all() for p in params.values()):
@@ -928,66 +1058,247 @@ def phase_train(torch, dev) -> dict:
                              f"{qkv_grad_norms}")
     if not head_grad["image_token_decoder.linear.weight"] > 0:
         raise AssertionError(f"zero Gaussian-head gradient: {head_grad}")
-    if not min(res["param_change"].values()) > 0:
-        raise AssertionError(f"params did not change: {res['param_change']}")
-    if not min(res["ema_change"].values()) > 0:
-        raise AssertionError(f"EMA did not move: {res['ema_change']}")
-    return res
-
-
-def phase_main(torch, dev, system) -> dict:
-    import numpy as np
-
-    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
-    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
-    pipe = DiffusionGSPipeline(system)
-    kw = dict(resolution=RES, n_views=N_VIEWS, matting="border")
-    pipe.batch([IMAGE], **kw)                       # warm-up run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        ply = os.path.join(tmp, "sphere.ply")
-        attention.LAUNCHES = 0
-        blend_kernel.LAUNCHES = 0
-        t0 = time.perf_counter()
-        out = pipe.batch([IMAGE], save_ply=[ply], **kw)[0]
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = {"attention": attention.LAUNCHES,
-                    "blend": blend_kernel.LAUNCHES}
-        ply_bytes = os.path.getsize(ply)
-        with open(ply, "rb") as f:
-            header = f.read(4096).split(b"end_header")[0].decode("ascii")
-    n_layers = len(system.model.transformer)
-    want = {"attention": n_layers * STEPS,
-            "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS}
-    # the device's share of one more asset and the blend kernel's part of
-    # it (kernel time summed over the asset: one stream, so busy time)
-    by_kernel = device_ms_by_kernel(torch, lambda: pipe.batch([IMAGE], **kw),
-                                    iters=1, warm_up=False)
-    g = out.gaussians
-    res = {"seconds_per_asset": secs,
-           "device_ms_per_asset": sum(by_kernel.values()),
-           "blend_device_ms_per_asset": kernel_ms(by_kernel,
-                                                  "blend_fwd_kernel"),
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
-           "launches": launches, "expected_launches": want,
-           "gaussians_after_filters": int(g.xyz.shape[0]),
-           "renders_shape": list(out.renders.shape),
-           "overflow": out.stats, "ply_bytes": ply_bytes,
-           "card": card_line()}
-    print(f"[5 main path] {json.dumps(res)}", flush=True)
+    if not min(out["param_change"].values()) > 0:
+        raise AssertionError(f"params did not change: {out['param_change']}")
+    graded = [k for k in watch if k not in head_grad or head_grad[k] > 0]
+    if not min(out["ema_change"][k] for k in graded) > 0:
+        raise AssertionError(f"EMA did not move: {out['ema_change']}")
     if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
-    if list(out.renders.shape) != [N_VIEWS, 3, RES, RES]:
+        raise AssertionError(f"train kernel launches {launches} != {want}")
+    return out
+
+
+def profile_asset(torch, fn) -> dict:
+    """One call of fn() under torch.profiler (host and device): device ms
+    by kernel (device events only: a host op's device time repeats its
+    kernels'), and per named range of the sampler ("denoiser": the DiT's
+    eager launches; "render": the rasterizer and its glue) the host ms
+    spent inside it, the device ms of the kernels launched inside it and
+    the device span from its first kernel to its last.  The profiler
+    adds its own host cost to every operation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_kernel, ranges = {}, {}
+    for e in prof.key_averages():
+        if e.key in ("denoiser", "render"):
+            r = ranges.setdefault(e.key, {})
+            if e.device_type == DeviceType.CPU:
+                r.update(calls=e.count, host_ms=e.cpu_time_total / 1e3,
+                         kernel_ms=e.device_time_total / 1e3)
+            else:
+                r["device_span_ms"] = e.device_time_total / 1e3
+        elif (e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0):
+            name = re.sub(r"^void |\(anonymous namespace\)::|at::native::",
+                          "", e.key)[:60]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.self_device_time_total / 1e3)
+    del prof
+    return {"wall_s": wall, "by_kernel": by_kernel, "ranges": ranges,
+            "device_ms": sum(by_kernel.values()),
+            "free_profile_s": collect_garbage()}
+
+
+def host_split(stages: dict, prof: dict) -> dict:
+    """One asset's host seconds by pipeline stage (synchronized edges)
+    and the sampler's device-busy time (kernel time summed over the
+    profiled asset, one stream) beside it."""
+    busy = prof["device_ms"] / 1e3
+    return {"stages_s": stages, "total_s": sum(stages.values()),
+            "sampler_device_busy_s": busy,
+            "sampler_device_idle_share": 1.0 - busy / stages["sampler"],
+            "profiled_asset_wall_s": prof["wall_s"],
+            "profiled_ranges": prof["ranges"]}
+
+
+def check_asset(out, res: int, header: str = None) -> None:
+    """Finite renders of the expected shape and finite Gaussians, the
+    PLY's header naming them when one was written, and overflow counters
+    that were counted (binned entries > 0)."""
+    import numpy as np
+    g = out.gaussians
+    if list(out.renders.shape) != [N_VIEWS, 3, res, res]:
         raise AssertionError(f"renders shape {out.renders.shape}")
     if not np.isfinite(out.renders).all():
         raise AssertionError("non-finite renders")
     if not all(np.isfinite(x).all() for x in g):
         raise AssertionError("non-finite Gaussians")
-    if f"element vertex {g.xyz.shape[0]}" not in header or ply_bytes <= 0:
+    if header is not None and f"element vertex {g.xyz.shape[0]}" not in header:
         raise AssertionError("PLY not written as expected")
-    return res
+    if not (out.stats["binned_entries"] > 0
+            and min(out.stats.values()) >= 0):
+        raise AssertionError(f"overflow counters {out.stats}")
+
+
+def sample_asset(torch, dev, pipe, res: int, label: str,
+                 profiled: bool = True, warm_up: bool = True) -> dict:
+    """DiffusionGSPipeline.batch on IMAGE at res^2: a warm-up call, a
+    timed call (host clock, ending in synchronize; stages split at
+    synchronized edges; launches counted; peak memory; PLY written), and
+    with `profiled` one more call under torch.profiler."""
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    kw = dict(resolution=res, n_views=N_VIEWS, matting="border")
+    if warm_up:
+        pipe.batch([IMAGE], **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "sphere.ply")
+        reset_launches(attention, blend_kernel)
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            out = pipe.batch([IMAGE], save_ply=[ply], stage_seconds=stages,
+                             **kw)[0]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = {"attention": attention.LAUNCHES,
+                    "blend": blend_kernel.LAUNCHES}
+        others = {n: v for m in (attention, blend_kernel)
+                  for n, v in launch_counts(m).items()
+                  if n != "LAUNCHES" and v}
+        ply_bytes = os.path.getsize(ply)
+        with open(ply, "rb") as f:
+            header = f.read(4096).split(b"end_header")[0].decode("ascii")
+    n_layers = len(pipe.system.model.transformer)
+    want = {"attention": n_layers * STEPS,
+            "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS}
+    res_out = {"seconds_per_asset": secs, "gc_seconds": gc_clock.seconds,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated(dev),
+               "launches": launches, "expected_launches": want,
+               "gaussians_after_filters": int(out.gaussians.xyz.shape[0]),
+               "renders_shape": list(out.renders.shape),
+               "overflow": out.stats, "ply_bytes": ply_bytes,
+               "card": card_line()}
+    if profiled:
+        # the device's share of one more asset (kernel time summed over
+        # the asset: one stream, so busy time) and the blend's part of it
+        prof = profile_asset(torch, lambda: pipe.batch([IMAGE], **kw))
+        res_out.update(device_ms_per_asset=prof["device_ms"],
+                       blend_device_ms_per_asset=kernel_ms(
+                           prof["by_kernel"], "blend_fwd_kernel"),
+                       attention_device_ms_per_asset=kernel_ms(
+                           prof["by_kernel"], "flash_fwd_kernel"),
+                       free_profile_s=prof["free_profile_s"],
+                       host_split=host_split(stages, prof))
+    else:
+        res_out["stages_s"] = stages
+    print(f"[{label}] {json.dumps(res_out)}", flush=True)
+    check_asset(out, res, header)
+    if launches != want or others:
+        raise AssertionError(f"kernel launches {launches} (others "
+                             f"{others}) != {want}")
+    return res_out
+
+
+def phase_main(torch, dev, system) -> dict:
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    return sample_asset(torch, dev, DiffusionGSPipeline(system), RES,
+                        "5 main path")
+
+
+def synthetic_reference_ckpt(torch, dev, config: str, path: str) -> dict:
+    """A full-width checkpoint of `config`'s denoiser in the reference's
+    Lightning layout ({"state_dict": {"shape_model." + name: tensor}}),
+    made on the card from a seeded generator and written to `path`:
+    LayerNorm scales 1 + N(0, 0.02), every other tensor N(0, 0.02).
+    Returns the source tensors (on the card) by reference name."""
+    from open_diffusiongs_tpu_torch.models.denoiser import DGSDenoiser
+    from open_diffusiongs_tpu_torch.systems.builder import shape_model_kwargs
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    cfg = load_config(config, makedirs=False)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in DGSDenoiser(**shape_model_kwargs(
+            cfg.system["shape_model"])).state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    src = {}
+    for name, shape in shapes.items():
+        w = 0.02 * torch.randn(shape, generator=gen, device=dev)
+        src[name] = w + 1.0 if "layernorm" in name else w
+    torch.save({"epoch": 0, "global_step": 0, "state_dict": {
+        "shape_model." + k: v.cpu() for k, v in src.items()}}, path)
+    return src
+
+
+def phase_load(torch, dev, tmp: str):
+    """10: a full-width reference checkpoint -> make_pretrained_dir ->
+    DiffusionGSPipeline.from_pretrained, on the card; every loaded tensor
+    equals its source bit for bit."""
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    from open_diffusiongs_tpu_torch.tools.make_pretrained_dir import \
+        make_pretrained_dir
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "obj_ckpt_512.ckpt")
+    src = synthetic_reference_ckpt(torch, dev, CONFIG_512, ckpt)
+    ckpt_bytes = os.path.getsize(ckpt)
+    t1 = time.perf_counter()
+    out = make_pretrained_dir(CONFIG_512, ckpt, os.path.join(tmp, "obj_512"),
+                              device=dev)
+    os.remove(ckpt)
+    t2 = time.perf_counter()
+    pipe = DiffusionGSPipeline.from_pretrained(out, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    state = pipe.system.model.state_dict()
+    differ = [k for k in src if not torch.equal(state[k], src[k])]
+    res = {"tensors": len(src),
+           "parameters": sum(v.numel() for v in src.values()),
+           "ckpt_bytes": ckpt_bytes,
+           "pretrained_dir_bytes": sum(
+               os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(out) for f in fs),
+           "write_ckpt_s": t1 - t0, "make_pretrained_dir_s": t2 - t1,
+           "from_pretrained_s": t3 - t2, "differing_tensors": differ[:5],
+           "config": os.path.relpath(CONFIG_512, ROOT), "card": card_line()}
+    print(f"[10 load] {json.dumps(res)}", flush=True)
+    if set(state) != set(src) or differ:
+        raise AssertionError(f"loaded weights differ from the source: "
+                             f"{differ[:5]} (keys equal: "
+                             f"{set(state) == set(src)})")
+    if pipe.system.device != dev or state["transformer.0.attn.qkv.weight"
+                                         ].device != dev:
+        raise AssertionError("from_pretrained did not load onto the card")
+    return res, pipe, out, {k: src[k] for k in SPOT_CHECK}
+
+
+def phase_sample_512(torch, dev, pipe, pretrained: str) -> dict:
+    """11: 512^2 sampling from the loaded pipeline at init statistics
+    (warm-up, timed, profiled) and, through from_pretrained's overrides,
+    at trained statistics (timed)."""
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    init = sample_asset(torch, dev, pipe, RES_512, "11 512^2 sampling, init")
+    scaling, opacity = trained_stat_offsets(RES_512)
+    overrides = [f"system.shape_model.gs_raw_offset_scaling={scaling!r}",
+                 f"system.shape_model.gs_raw_offset_opacity={opacity!r}"]
+    del pipe
+    torch.cuda.empty_cache()
+    trained_pipe = DiffusionGSPipeline.from_pretrained(
+        pretrained, device=dev, overrides=overrides)
+    if trained_pipe.system.model.gs_raw_offset_opacity != opacity:
+        raise AssertionError("trained-statistics override not applied")
+    # no warm-up: every kernel, cuBLAS plan and cached block of this
+    # shape was made by the init asset's three calls
+    trained = sample_asset(torch, dev, trained_pipe, RES_512,
+                           "11 512^2 sampling, trained statistics",
+                           profiled=False, warm_up=False)
+    return {"init": init, "trained": dict(trained, overrides=overrides)}
+
+
+def phase_train_512(torch, dev, pretrained: str, spot: dict) -> dict:
+    """12: one 512^2 train step of configs/diffusionGS_rel_512.yaml at
+    b = 1 (4 + 4 views, from step 151; 1 warm-up + 3 timed), its weights
+    loaded by the config's `system.weights` from phase 10's directory."""
+    return phase_train(torch, dev, "12 512^2 train step", CONFIG_512,
+                       overrides=(f"system.weights={pretrained}",),
+                       profile=False, loaded=spot)
 
 
 def kernel_ms(by_kernel: dict, prefix: str) -> float:
@@ -1240,13 +1551,8 @@ def phase_general_sampling(torch, dev) -> dict:
 
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
-    from open_diffusiongs_tpu_torch.systems.builder import (build_system,
-                                                            load_config)
-    cfg = load_config(CONFIG)
-    shape = dict(cfg["system"]["shape_model"], width=768, dim_heads=48)
-    system = build_system(cfg["system_type"],
-                          dict(cfg["system"], shape_model=shape), device=dev)
-    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    system = build_system(torch, dev, overrides=(
+        "system.shape_model.width=768", "system.shape_model.dim_heads=48"))
     blocks = system.model.transformer
     if any(blk.attn.packed for blk in blocks):
         raise AssertionError("16 heads of 48 must take the general route")
@@ -1466,27 +1772,54 @@ def main() -> int:
     import open_diffusiongs_tpu_torch as port
     dev = port.require_cuda()
 
-    phase_device(torch)
-    phase_build()
-    attn = phase_attention(torch, dev)
-    system = build_system(torch, dev)
-    blend, views = phase_blend(torch, dev, system)
-    main_res = phase_main(torch, dev, system)
-    attn_train = phase_attention_train(torch, dev)
-    blend_bwd = phase_blend_bwd(torch, dev, views)
+    seconds = {}        # host seconds of each phase, printed at the end
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("1 device", phase_device, torch)
+    timed("2 build", phase_build)
+    attn = timed("3 attention", phase_attention, torch, dev)
+    system = timed("system", build_system, torch, dev)
+    blend, views = timed("4 blend", phase_blend, torch, dev, system)
+    main_res = timed("5 main path", phase_main, torch, dev, system)
+    attn_train = timed("6 attention training", phase_attention_train,
+                       torch, dev)
+    blend_bwd = timed("7 blend backward", phase_blend_bwd, torch, dev, views)
     del system, views
     torch.cuda.empty_cache()
-    train = phase_train(torch, dev)
+    train = timed("8 train path", phase_train, torch, dev)
     torch.cuda.empty_cache()
-    general = phase_general_kernel(torch, dev)
-    smax = phase_smax(torch, dev)
-    general_sampling = phase_general_sampling(torch, dev)
+    general = timed("9a general kernel", phase_general_kernel, torch, dev)
+    smax = timed("9b scalar max", phase_smax, torch, dev)
+    general_sampling = timed("9c general sampling", phase_general_sampling,
+                             torch, dev)
     torch.cuda.empty_cache()
-    phase_qk_norm_stack(torch, dev)
+    timed("9d qk_norm stack", phase_qk_norm_stack, torch, dev)
     torch.cuda.empty_cache()
-    bench = phase_bench_variants(torch, dev)
-    phase_dh16(torch, dev)
-    phase_odd_shapes(torch, dev)
+    bench = timed("9e bench variants", phase_bench_variants, torch, dev)
+    timed("9f dh 16", phase_dh16, torch, dev)
+    timed("9g odd shapes", phase_odd_shapes, torch, dev)
+    torch.cuda.empty_cache()
+    # 10-12 share one temporary directory (the reference checkpoint and
+    # the pretrained directory made from it), deleted on the way out
+    with tempfile.TemporaryDirectory() as tmp:
+        load, pipe, pretrained, spot = timed("10 load", phase_load, torch,
+                                             dev, tmp)
+        sample_512 = timed("11 512^2 sampling", phase_sample_512, torch, dev,
+                           pipe, pretrained)
+        del pipe
+        torch.cuda.empty_cache()
+        train_512 = timed("12 512^2 train step", phase_train_512, torch, dev,
+                          pretrained, spot)
+    print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
+    print("[host split] " + json.dumps({
+        f"{RES}^2": main_res["host_split"],
+        f"{RES_512}^2": sample_512["init"]["host_split"],
+        "card": card_line()}), flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "flax", "optax", "orbax")
@@ -1503,14 +1836,17 @@ def main() -> int:
          "launches": main_res["launches"]["attention"],
          "max_abs_err": attn["max_abs_err"], "ms": attn["ms"],
          "plain_ms": attn["plain_ms"], **roof(attn),
-         "library_ms": attn["sdpa_ms"]},
+         "library_ms": attn["sdpa_ms"],
+         **{k: v for k, v in attn.items() if k.endswith("_L16386")},
+         "launches_512": sample_512["init"]["launches"]["attention"]},
         {"name": "blend_tiles", "route": "cuda",
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
          "launches": main_res["launches"]["blend"],
          "max_abs_err": max(r["max_abs_err"] for r in blend),
          "ms": blend[0]["ms"], "plain_ms": blend[0]["plain_ms"],
-         **roof(blend[0]), "library_ms": None, **trained_times(blend)},
+         **roof(blend[0]), "library_ms": None, **trained_times(blend),
+         "launches_512": sample_512["init"]["launches"]["blend"]},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -1519,7 +1855,8 @@ def main() -> int:
          "ms": attn_train["fwd_stats_ms"],
          "plain_ms": attn_train["fwd_stats_plain_ms"],
          **roof(attn_train["fwd_stats_bound"]),
-         "library_ms": attn_train["sdpa_fwd_ms"]},
+         "library_ms": attn_train["sdpa_fwd_ms"],
+         "launches_512": train_512["launches"]["attention_fwd_lse"]},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
@@ -1527,7 +1864,8 @@ def main() -> int:
          "max_abs_err": attn_train["max_abs_err_bwd"],
          "ms": attn_train["bwd_ms"], "plain_ms": attn_train["bwd_plain_ms"],
          **roof(attn_train["bwd_bound"]),
-         "library_ms": attn_train["sdpa_bwd_ms"]},
+         "library_ms": attn_train["sdpa_bwd_ms"],
+         "launches_512": train_512["launches"]["attention_bwd"]},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
@@ -1535,7 +1873,8 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in blend_bwd),
          "ms": blend_bwd[0]["ms"], "plain_ms": blend_bwd[0]["plain_ms"],
          **roof(blend_bwd[0]), **trained_times(blend_bwd),
-         "library_ms": None},
+         "library_ms": None,
+         "launches_512": train_512["launches"]["blend_bwd"]},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",

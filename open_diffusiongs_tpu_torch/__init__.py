@@ -62,6 +62,14 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def select_device(device=None) -> torch.device:
+    """An entry point's device: the CUDA device (`require_cuda`, which
+    raises without one) unless the caller names another, e.g. "cpu"."""
+    if device is None or torch.device(device).type == "cuda":
+        return require_cuda()
+    return torch.device(device)
+
+
 def _register_builtins():
     """Import submodules for their @register side effects."""
     from .systems import object_system as _obj  # noqa: F401

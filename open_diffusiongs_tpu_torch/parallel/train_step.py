@@ -155,6 +155,7 @@ class Optimizer:
         self.cfg = cfg
         self.kind = self.KINDS[cfg.name]
         named = list(named_params)
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         gcfgs = {"__default__": cfg}
         for gname, overrides in dict(cfg.params or {}).items():
@@ -190,6 +191,33 @@ class Optimizer:
                     and len(pref) > best_len):
                 best, best_len = gname, len(pref)
         return best
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The update count, the accumulation position and the Adam
+        moments / gradient accumulator by parameter name (tensors are
+        the optimizer's own, not copies)."""
+        def by_name(store):
+            return {n: store[id(p)] for n, p in zip(self.names, self.params)
+                    if id(p) in store}
+        acc = (None if self._acc is None
+               else dict(zip(self.names, self._acc)))
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": by_name(self._mu), "nu": by_name(self._nu),
+                "acc": acc}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s output; tensors are copied onto each
+        parameter's device."""
+        index = dict(zip(self.names, self.params))
+        self.count = int(sd["count"])
+        self.mini_step = int(sd["mini_step"])
+        self._mu = {id(index[n]): t.to(index[n].device, copy=True)
+                    for n, t in sd["mu"].items()}
+        self._nu = {id(index[n]): t.to(index[n].device, copy=True)
+                    for n, t in sd["nu"].items()}
+        self._acc = (None if sd["acc"] is None else
+                     [sd["acc"][n].to(p.device, copy=True)
+                      for n, p in zip(self.names, self.params)])
 
     def zero_grad(self) -> None:
         for p in self.params:

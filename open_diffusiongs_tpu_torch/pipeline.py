@@ -3,15 +3,17 @@
 Counterpart of open_diffusiongs_tpu/pipeline.py:63-294: preprocess the
 input image (background removal, foreground-ratio recentring, white pad),
 build the 4-view camera template, run the 30-step sampler, filter the
-Gaussians and export PLY.  Loading trained weights (`from_pretrained`, an
-orbax -> torch converter) waits for converted weights in the repository;
-the pipeline wraps a system whose model was initialized or loaded by the
-caller.
+Gaussians and export PLY.  `from_pretrained` (JAX :160-193) loads a
+pretrained directory (config.yaml + ckpts/, made from reference weights by
+the port's tools/make_pretrained_dir.py); the constructor wraps a system
+whose model the caller initialized or loaded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -112,6 +114,32 @@ class DiffusionGSPipeline:
     def __init__(self, system):
         self.system = system
 
+    @classmethod
+    def from_pretrained(cls, path: str, bf16: bool = True,
+                        overrides: Optional[list] = None,
+                        device=None) -> "DiffusionGSPipeline":
+        """path: a directory with config.yaml + ckpts/ (JAX
+        pipeline.py:160-193, local form).  The system is built from the
+        config with the dotlist `overrides` applied (serving knobs such
+        as "system.raster.max_per_tile=2048", which change no parameter),
+        initialized, then loaded strict from the latest checkpoint, its
+        EMA weights when it has them.  Runs on the GPU (raising without
+        one) unless `device` names another, e.g. "cpu"."""
+        from . import select_device
+        from .systems.builder import build_system
+        from .utils.checkpoint import load_module_weights, load_weights_file
+        from .utils.config import load_config
+
+        dev = select_device(device)
+        cfg = load_config(os.path.join(path, "config.yaml"),
+                          cli_args=list(overrides or []), makedirs=False)
+        system = build_system(cfg.system_type, cfg.system, bf16=bf16,
+                              device=dev)
+        system.init_params(torch.Generator(device=dev).manual_seed(0))
+        load_module_weights(system.model, load_weights_file(
+            os.path.join(path, "ckpts"), use_ema=True), strict=True)
+        return cls(system)
+
     def __call__(self, image, seed: int = 0, foreground_ratio: float = 0.85,
                  resolution: int = 256, n_views: int = 4,
                  opacity_thres: float = 0.02,
@@ -129,10 +157,16 @@ class DiffusionGSPipeline:
               resolution: int = 256, n_views: int = 4,
               opacity_thres: float = 0.02,
               crop_bbx: Tuple[float, ...] = (-0.91, 0.91) * 3,
-              save_ply=None, matting: str = "u2net") -> list:
+              save_ply=None, matting: str = "u2net",
+              stage_seconds: Optional[Dict[str, float]] = None) -> list:
         """Images (paths, PIL images or [3, h, w] arrays) -> one
         GSPipelineOutput each, sampled together as one batch.  `save_ply`:
-        optional per-image output paths (None entries skip)."""
+        optional per-image output paths (None entries skip).
+        `stage_seconds`: a dict that receives each stage's host seconds
+        (preprocess, camera_template, sampler, transfer, filters, ply),
+        each edge synchronized with the device."""
+        dev = self.system.device
+        clock = _StageClock(stage_seconds, dev)
         conds = []
         for image in images:
             if isinstance(image, str):
@@ -143,29 +177,57 @@ class DiffusionGSPipeline:
             else:
                 cond = np.asarray(image, np.float32)
             conds.append(cond)
+        clock.stage("preprocess")
         b = len(conds)
-        dev = self.system.device
         c2ws, fxy = object_camera_template(n_views, h=resolution,
                                            w=resolution)
         cond_t = torch.from_numpy(np.stack(conds)[:, None]).to(dev)
         c2w_t = torch.from_numpy(c2ws).to(dev)[None].expand(b, -1, -1, -1)
         fxy_t = torch.from_numpy(fxy).to(dev)[None].expand(b, -1, -1)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        clock.stage("camera_template")
         out = self.system.sample(cond_t, c2w_t, fxy_t, gen)
+        clock.stage("sampler")
 
         g_all = NumpyGaussians.from_tensors(out["gaussians"])
         renders_all = out["renders"].float().cpu().numpy()
         stats = {k: int(out[k]) for k in ("overflow_tiles",
                                           "overflow_gaussians",
                                           "binned_entries")}
+        clock.stage("transfer")
         results = []
         for i in range(b):
             g = NumpyGaussians(*(x[i] for x in g_all))
             g = g.apply_all_filters(opacity_thres=opacity_thres,
                                     crop_bbx=crop_bbx)
+            clock.stage("filters")
             if save_ply and save_ply[i]:
                 save_gaussians_ply(g, save_ply[i])
+            clock.stage("ply")
             results.append(GSPipelineOutput(
                 gaussians=g, renders=renders_all[i], input_image=conds[i],
                 stats=stats))
         return results
+
+
+class _StageClock:
+    """Adds the host seconds since the previous edge to `seconds[name]` at
+    each `stage(name)`, synchronizing a CUDA device at every edge; does
+    nothing when `seconds` is None."""
+
+    def __init__(self, seconds: Optional[Dict[str, float]], device):
+        self.seconds = seconds
+        self.cuda = torch.device(device).type == "cuda"
+        self.t = self._now()
+
+    def _now(self) -> float:
+        if self.seconds is not None and self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def stage(self, name: str) -> None:
+        if self.seconds is None:
+            return
+        t = self._now()
+        self.seconds[name] = self.seconds.get(name, 0.0) + t - self.t
+        self.t = t

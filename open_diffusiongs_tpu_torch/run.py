@@ -1,11 +1,14 @@
 """Single image -> 3D Gaussians on the GPU (the port of run.py).
 
-  python -m open_diffusiongs_tpu_torch.run --image input.png \
-      --matting border --out output/
+  python -m open_diffusiongs_tpu_torch.run --ckpt <dir with config.yaml +
+      ckpts/> --image input.png --matting border --out output/
 
-Runs the object model of configs/diffusionGS_rel.yaml with random weights
-(no trained checkpoint is in the repository yet): a smoke test of the
-sampling path, not a quality result.  Needs a CUDA device.
+`--ckpt` takes a pretrained directory (the port's
+tools/make_pretrained_dir.py makes one from a reference checkpoint or its
+NPZ).  Without it the object model of `--config` runs from random init
+(plus the config's own weight bootstraps, if it sets any): a smoke test of
+the sampling path, not a quality result.  Runs on the GPU unless
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--image", required=True, nargs="+",
                    help="one or more input images (sampled as one batch)")
-    p.add_argument("--config", default=CONFIG)
+    p.add_argument("--ckpt", default=None,
+                   help="pretrained dir (config.yaml + ckpts/); random "
+                        "weights if omitted")
+    p.add_argument("--config", default=CONFIG,
+                   help="the config of a run without --ckpt")
     p.add_argument("--out", default="output")
     p.add_argument("--seed", type=int, default=62)
     p.add_argument("--foreground-ratio", type=float, default=0.825)
@@ -35,23 +42,29 @@ def main(argv=None):
                    help="background removal; u2net needs weights the port "
                         "does not have — pass grabcut/border to acknowledge "
                         "the fallback")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     import torch
 
-    from open_diffusiongs_tpu_torch import require_cuda
+    from open_diffusiongs_tpu_torch import select_device
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
-    from open_diffusiongs_tpu_torch.systems.builder import (build_system,
-                                                            load_config)
+    from open_diffusiongs_tpu_torch.systems.builder import build_system
+    from open_diffusiongs_tpu_torch.utils.config import load_config
 
-    device = require_cuda()
-    cfg = load_config(args.config)
-    system = build_system(cfg["system_type"], cfg["system"], device=device)
-    logging.warning("no trained weights in the repository: random init "
-                    "(smoke-test mode)")
-    system.init_params(torch.Generator(device=device).manual_seed(0))
-    pipe = DiffusionGSPipeline(system)
+    if args.ckpt:
+        pipe = DiffusionGSPipeline.from_pretrained(args.ckpt,
+                                                   device=args.device)
+    else:
+        device = select_device(args.device)
+        cfg = load_config(args.config, makedirs=False)
+        system = build_system(cfg.system_type, cfg.system, device=device)
+        logging.warning("no --ckpt: random init (smoke-test mode)")
+        system.init_params(torch.Generator(device=device).manual_seed(0))
+        system.load_pretrained()
+        pipe = DiffusionGSPipeline(system)
 
     multi = len(args.image) > 1
     subdirs = [os.path.join(args.out, os.path.splitext(

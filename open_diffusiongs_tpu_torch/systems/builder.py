@@ -2,9 +2,9 @@
 config surface.
 
 Counterpart of open_diffusiongs_tpu/systems/builder.py:49-151 for the
-object system.  The same configs/*.yaml drive both packages (ROADMAP
-rule 4): keys that steer TPU-only machinery are accepted, ignored, and
-named in one log line.
+object system, from a config read by utils/config.py::load_config.  The
+same configs/*.yaml drive both packages (ROADMAP rule 4): keys that steer
+TPU-only machinery are accepted, ignored, and named in one log line.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ import logging
 from typing import Any, Dict, Optional
 
 import torch
-import yaml
 
 from ..ops.rasterize import TPU_ONLY_FIELDS, RasterizeConfig
 from ..parallel.train_step import OptimizerConfig
@@ -43,37 +42,15 @@ _SHAPE_MODEL_MAP = {
     "prior_distribution": None, "use_gssplat": None,
     "grad_checkpoint_every": None, "use_downsample": None,
     "num_latents": None, "range_setting_type": None,
-    # a set value is refused by build_system (WEIGHT_KEYS)
+    # lifted into ObjectSystemConfig by build_system (load_pretrained)
     "pretrained_model_name_or_path": None,
 }
-# stage-2 weight bootstraps (JAX builder.py:96-103, object_system.py:
-# 114-140): a truthy value raises until the port loads weights; missing,
-# null or empty builds, as JAX reads them with `if value:`
-WEIGHT_KEYS = ("shape_model.pretrained_model_name_or_path",
-               "system.weights", "system.weights_ignore_modules")
-
-
-def _refuse_weight_keys(system_cfg: Dict[str, Any]) -> None:
-    for key in WEIGHT_KEYS:
-        block, name = key.split(".")
-        cfg = (system_cfg if block == "system"
-               else system_cfg.get(block) or {})
-        if cfg.get(name):
-            raise NotImplementedError(
-                f"{key} (loading weights into the system) is not ported")
 
 
 # shape_model keys that steer TPU-only machinery (ignored, logged)
 TPU_ONLY_SHAPE_KEYS = ("use_flash", "remat_save_attn", "remat_save_mlp")
 LOSS_LAMBDAS = ("lambda_diffusion", "lambda_lpips", "lambda_ssim",
                 "lambda_pointsdist", "lambda_xyz")
-
-
-def load_config(path: str) -> Dict[str, Any]:
-    """A config YAML as a plain dict (the port reads `system_type` and
-    `system`, which hold no interpolations)."""
-    with open(path) as f:
-        return yaml.safe_load(f)
 
 
 def shape_model_kwargs(cfg: Dict[str, Any], bf16: bool = True,
@@ -113,12 +90,13 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
                  bf16: bool = True, raster: Optional[RasterizeConfig] = None,
                  device: torch.device | str = "cpu"):
     """system_type: 'diffusion-gs-system' (the scene system is not ported
-    yet).  Returns the system with its (uninitialized) model on `device`."""
+    yet).  Returns the system with its (uninitialized) model on `device`:
+    call `init_params`, then `load_pretrained` (the config's weight
+    bootstraps)."""
     from .. import find
     from .object_system import ObjectSystemConfig
 
     cfg = dict(system_cfg)
-    _refuse_weight_keys(cfg)
     ignored: list = []
     loss = dict(cfg.get("loss", {}))
     noise = dict(cfg.get("noise_scheduler", {}))
@@ -128,6 +106,15 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
         shape_model=shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
                                        ignored=ignored),
     )
+    # the stage-2 bootstraps, when set (JAX builder.py:96-103; missing,
+    # null or empty builds without them)
+    pmp = (cfg.get("shape_model") or {}).get("pretrained_model_name_or_path")
+    if pmp:
+        kwargs["pretrained_model_name_or_path"] = pmp
+    if cfg.get("weights"):
+        kwargs["weights"] = cfg["weights"]
+    if cfg.get("weights_ignore_modules"):
+        kwargs["weights_ignore_modules"] = tuple(cfg["weights_ignore_modules"])
     if raster is not None:
         kwargs["raster"] = raster
     elif "raster" in cfg:

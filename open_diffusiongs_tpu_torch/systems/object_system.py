@@ -2,17 +2,18 @@
 sampling loop (PyTorch).
 
 Counterpart of open_diffusiongs_tpu/systems/object_system.py
-(ObjectSystemConfig, __init__, init_params, _gt_xyz, train_loss,
-make_model_fn and sample, :42-112, :143-264).  The denoiser is an
+(ObjectSystemConfig, __init__, init_params, load_pretrained, _gt_xyz,
+train_loss, make_model_fn and sample, :42-264).  The denoiser is an
 nn.Module owned by the system and placed on an explicit `device`; weights
-come from `init_params(generator)` or from `self.model.load_state_dict`
-(reference names, utils/convert.py).  The optimizer and the step around
-`train_loss` are parallel/train_step.py.
+come from `init_params(generator)`, then the config's stage-2 bootstraps
+(`load_pretrained`), or from utils/checkpoint.py (reference names).  The
+optimizer and the step around `train_loss` are parallel/train_step.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -47,6 +48,21 @@ class ObjectSystemConfig:
     raster: rasterize.RasterizeConfig = rasterize.RasterizeConfig()
     # keyword arguments of DGSDenoiser
     shape_model: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # stage-2 bootstraps (load_pretrained): a strict load of the whole
+    # denoiser, then a partial load that skips the listed modules
+    pretrained_model_name_or_path: Optional[str] = None
+    weights: Optional[str] = None
+    weights_ignore_modules: Tuple[str, ...] = ()
+
+
+def _weights(key: str, path: str) -> Dict[str, torch.Tensor]:
+    """load_weights_file(path), its missing-source error naming the config
+    key that set it."""
+    from ..utils.checkpoint import load_weights_file
+    try:
+        return load_weights_file(path)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"{key}: {e}") from e
 
 
 @register("diffusion-gs-system")
@@ -83,6 +99,36 @@ class ObjectSystem:
         Linear weights ~ N(0, 0.02), zero biases, truncated-normal
         free-Gaussian embedding.  Returns the model."""
         self.model.init_weights(generator)
+        return self.model
+
+    def load_pretrained(self) -> DGSDenoiser:
+        """Apply the config's weight bootstraps to the initialized model
+        (JAX object_system.py:114-140), in place:
+          1. `pretrained_model_name_or_path`: strict load of the whole
+             denoiser (the stage-2-from-stage-1 recipe);
+          2. `weights`: non-strict load, skipping the modules named in
+             `weights_ignore_modules` (their init values stay).
+        Sources are those of utils/checkpoint.py::load_weights_file."""
+        from ..utils import checkpoint as ckpt_lib
+        cfg = self.cfg
+        if cfg.pretrained_model_name_or_path:
+            src = _weights("shape_model.pretrained_model_name_or_path",
+                           cfg.pretrained_model_name_or_path)
+            print(f"Loading pretrained shape model from "
+                  f"{cfg.pretrained_model_name_or_path}")
+            ckpt_lib.load_module_weights(self.model, src, strict=True)
+        if cfg.weights:
+            key = "system.weights"
+            ignore = None
+            if cfg.weights_ignore_modules:
+                key += (" (with system.weights_ignore_modules "
+                        f"{list(cfg.weights_ignore_modules)})")
+                ignore = ("^(?:" + "|".join(
+                    re.escape(m) for m in cfg.weights_ignore_modules)
+                    + r")(\.|$)")
+            src = _weights(key, cfg.weights)
+            ckpt_lib.load_module_weights(self.model, src, ignore=ignore,
+                                         strict=False)
         return self.model
 
     def _gt_xyz(self, batch, ray_o: torch.Tensor, ray_d: torch.Tensor
@@ -174,11 +220,15 @@ class ObjectSystem:
         rc2w = c2w[:, skip_cond_render:]
         rfxy = fxfycxcy[:, skip_cond_render:]
 
+        # named ranges for torch.profiler: the DiT's host time and the
+        # rasterizer's glue are read apart in a profiled asset
         def model_fn(images, t):
-            g, _ = self.model(images, ray_o, ray_d, t)
-            out = rasterize.render(g, rc2w, rfxy, h, w,
-                                   bg_color=self.cfg.bg_color,
-                                   cfg=self.cfg.raster)
+            with torch.profiler.record_function("denoiser"):
+                g, _ = self.model(images, ray_o, ray_d, t)
+            with torch.profiler.record_function("render"):
+                out = rasterize.render(g, rc2w, rfxy, h, w,
+                                       bg_color=self.cfg.bg_color,
+                                       cfg=self.cfg.raster)
             counters = {k: out[k] for k in ("overflow_tiles",
                                             "overflow_gaussians",
                                             "binned_entries")}

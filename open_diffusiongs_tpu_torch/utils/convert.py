@@ -84,17 +84,27 @@ def state_dict_from_flax(params: Dict[str, Any],
     """flax DGSDenoiser params (NumPy leaves) -> the port's state_dict (f32
     tensors).  The scene variant ("plk") stores the free-Gaussian
     embedding as [1, n, width], like the reference."""
-    flat = flatten_params(params)
+    return state_dict_from_flat(flatten_params(params), ray_pe_type)
+
+
+def state_dict_from_flat(flat: Dict[str, np.ndarray],
+                         ray_pe_type: str = "relative_plk"
+                         ) -> Dict[str, torch.Tensor]:
+    """'/'-joined flax paths -> the port's state_dict (f32 tensors): the
+    NPZ of tools/convert_reference_ckpt.py read back, or a flattened flax
+    tree.  The NPZ keeps the free-Gaussian embedding as [n, width] for
+    both variants (convert_state_dict :90-91); "plk" restores [1, n,
+    width]."""
     sd: Dict[str, np.ndarray] = {}
     for name, (path, transpose) in _STATIC_MAP.items():
-        w = flat[path]
+        w = np.asarray(flat[path], np.float32)
         sd[name] = w.T if transpose else w
     if ray_pe_type == "plk":
         sd["gaussians_pos_embedding"] = sd["gaussians_pos_embedding"][None]
     n_layers = flat[_LAYER_PREFIX + "attn/q/kernel"].shape[0]
     for i in range(n_layers):
-        block = {sub[len(_LAYER_PREFIX):]: w[i] for sub, w in flat.items()
-                 if sub.startswith(_LAYER_PREFIX)}
+        block = {sub[len(_LAYER_PREFIX):]: np.asarray(w[i], np.float32)
+                 for sub, w in flat.items() if sub.startswith(_LAYER_PREFIX)}
         sd.update({f"transformer.{i}.{name}": w
                    for name, w in _block_state(block).items()})
     return {k: torch.tensor(v, dtype=torch.float32)

@@ -199,6 +199,9 @@ def test_port_imports_no_jax():
         "import open_diffusiongs_tpu_torch.run\n"
         "import open_diffusiongs_tpu_torch.systems.builder\n"
         "import open_diffusiongs_tpu_torch.utils.convert\n"
+        "import open_diffusiongs_tpu_torch.utils.checkpoint\n"
+        "import open_diffusiongs_tpu_torch.utils.config\n"
+        "import open_diffusiongs_tpu_torch.tools.make_pretrained_dir\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'jaxlib', 'flax', 'optax', 'orbax', 'open_diffusiongs_tpu')]\n"
         "print(bad)\n"

@@ -44,6 +44,7 @@ from open_diffusiongs_tpu_torch.pipeline import object_camera_template
 from open_diffusiongs_tpu_torch.systems import builder
 from open_diffusiongs_tpu_torch.systems.object_system import (
     ObjectSystem, ObjectSystemConfig)
+from open_diffusiongs_tpu_torch.utils.config import load_config
 from open_diffusiongs_tpu_torch.utils.convert import state_dict_from_flax
 from utils3d import orbit_cameras, random_gaussians
 
@@ -230,20 +231,20 @@ def test_loss_lambda_schedule_matches_jax(spec):
 
 
 def test_build_optimizer_config_matches_jax():
-    cfg = builder.load_config(CONFIG)
-    ours = builder.build_optimizer_config(cfg["system"], cfg["trainer"])
-    ref = jbuilder.build_optimizer_config(cfg["system"], cfg["trainer"])
+    cfg = load_config(CONFIG, makedirs=False)
+    ours = builder.build_optimizer_config(cfg.system, cfg.trainer)
+    ref = jbuilder.build_optimizer_config(cfg.system, cfg.trainer)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert ours.grad_clip == 0.5 and ours.weight_decay == 0.01
 
 
 def test_builder_reads_loss_lpips_and_checkpoint_keys():
-    cfg = builder.load_config(CONFIG)
-    system_cfg = dict(cfg["system"], use_lpips=False,
+    cfg = load_config(CONFIG, makedirs=False)
+    system_cfg = dict(cfg.system, use_lpips=False,
                       lpips_weights="lpips.npz")
     system_cfg["shape_model"] = dict(system_cfg["shape_model"], **TINY)
-    system = builder.build_system(cfg["system_type"], system_cfg)
-    loss = cfg["system"]["loss"]
+    system = builder.build_system(cfg.system_type, system_cfg)
+    loss = cfg.system["loss"]
     for lam in builder.LOSS_LAMBDAS:
         v = loss[lam]
         assert getattr(system.cfg, lam) == (tuple(v) if isinstance(v, list)
