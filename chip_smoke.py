@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's object-sampling path, object training step,
-the DiT's general attention route and serving from a checkpoint at 256^2
-and 512^2 once on one NVIDIA GPU.
+the DiT's general attention route, serving from a checkpoint at 256^2
+and 512^2, and the training / evaluation CLI (object training with resume
+and export, scene eval with its metric CLI) once on one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -96,7 +97,8 @@ Phases, one summary line each (every failure raises and exits non-zero):
                c. sampling as phase 5 with shape_model width 768 and
                   dim_heads 48 (16 heads of 48, which fail the packed lane
                   test; no shipped config uses this layout): exactly
-                  24 x 30 general-route launches and none of the packed
+                  12 x 30 general-route launches (12 of the 24
+                  layers) and none of the packed
                   forward (and the blend launches) in the timed asset,
                   finite renders and Gaussians; then one more asset
                   under torch.profiler: device ms per asset and
@@ -131,6 +133,40 @@ Phases, one summary line each (every failure raises and exits non-zero):
                phase 8 at 512^2, b = 1, from the 512^2 config with
                system.weights set to phase 10's directory (three of its
                tensors checked as loaded), no profiled step.
+  13. launch train
+               object training through open_diffusiongs_tpu_torch.launch
+               in process: a G-Objaverse tree of 4 objects x 40 views at
+               512^2 (smooth shapes on white; PNG + json + zip `_nd.exr`,
+               written with the port's utils/exr.py) in a temporary
+               directory; configs/diffusionGS_rel.yaml at its own b = 4 and
+               num_workers 4 with the overrides it prints (paths,
+               use_lpips false, one trial dir, an eval at step 4, only the
+               forced final saves, a log line every step of the first
+               run): --train --max_steps 4, a resume to 6, --export of one
+               object from the last checkpoint.  Gates: metrics.csv steps
+               1..5; the eval after the restore equals the eval at the
+               save bit for bit; a parameter, its EMA and its Adam moment
+               restored bit for bit; finite losses; each call's launches
+               equal the derived counts (per step 48 / 24 / 40 / 40 of
+               #1s / #3 / #2 / #4 with 4 + 6 views, eval passes apart);
+               export's PLY, PNG and AVI.  Printed: phase 8's step in
+               memory at 4 + 6 views (its own gates), the loader alone over
+               8 batches, seconds per step with the loader in the loop
+               and the loop's wait on the loader in each,
+               peak memory, checkpoint bytes and save / restore seconds,
+               overflow_frac, each call's collector seconds;
+  14. scene eval
+               launch --validate of configs/diffusionGS_scene_eval.yaml at
+               its eval_batch_size 16 (random weights from seed 0) on an
+               RE10K tree of 16 scenes x 8 frames at 360 x 640, one batch,
+               then open_diffusiongs_tpu_torch.eval_scene_result on the
+               dumps.  Gates: 16 npz dumps, trajectory videos, PLY + path
+               videos, val_metrics.json; the launches equal the derived
+               counts (720 #1; 16 x 91 + 16 x 31 #2); finite PSNR / SSIM
+               over 16 scenes.  Printed: seconds for the batch and per
+               scene split at synchronized edges into load, sampler,
+               dumps (npz + grid PNG), trajectory videos and PLY + path
+               video, peak memory, the overflow counters.
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -181,6 +217,7 @@ TRAIN_BATCH = 4          # the config's per-device batch_size
 TRAIN_START_STEP = 151   # every C()-scheduled loss term at full weight
 TRAIN_STEPS = 3          # timed, after one warm-up step
 QKV_SCALES = (1.0, 0.6, 1.4, 0.8)   # phase 6, one per batch element
+GENERAL_SAMPLING_LAYERS = 12          # phase 9c's depth
 DO_SCALES = (1.0, 2.0, 0.5, 1.5)
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W).  A
 # kernel's bound is the larger of its operations over the peak rate of
@@ -909,34 +946,36 @@ def phase_blend_bwd(torch, dev, views) -> list:
     return [blend_bwd_case(torch, dev, v) for v in views]
 
 
-def train_batch(torch, dev, b: int, res: int):
-    """b objects of 4 input + 4 supervision views at res^2, in memory:
-    uniform images from a numpy seed, the object camera template, depth
-    3.0, masks of ones."""
+def train_batch(torch, dev, b: int, res: int, sup_views: int = N_VIEWS):
+    """b objects of 4 input views and `sup_views` supervision views (the
+    input views first) at res^2, in memory: uniform images from a numpy
+    seed, the object camera template, depth 3.0, masks of ones."""
     import numpy as np
 
     from open_diffusiongs_tpu_torch.pipeline import object_camera_template
-    v = N_VIEWS
-    c2ws, fxy = object_camera_template(v, h=res, w=res)
+    v, sv = N_VIEWS, sup_views
+    c2ws, fxy = object_camera_template(sv, h=res, w=res)
     rng = np.random.default_rng(0)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
-    cams = dict(c2ws=t(np.broadcast_to(c2ws, (b, v, 4, 4))),
-                fxfycxcys=t(np.broadcast_to(fxy, (b, v, 4))))
+    cams = dict(c2ws=t(np.broadcast_to(c2ws, (b, sv, 4, 4))),
+                fxfycxcys=t(np.broadcast_to(fxy, (b, sv, 4))))
     return {
         "rgbs_input": t(rng.uniform(size=(b, v, 3, res, res))),
-        "c2ws_input": cams["c2ws"], "fxfycxcys_input": cams["fxfycxcys"],
+        "c2ws_input": cams["c2ws"][:, :v],
+        "fxfycxcys_input": cams["fxfycxcys"][:, :v],
         "depths_input": torch.full((b, v, 1, res, res), 3.0, device=dev),
         "masks_input": torch.ones((b, v, 1, res, res), device=dev),
-        "rgbs": t(rng.uniform(size=(b, v, 3, res, res))),
-        "masks": torch.ones((b, v, 1, res, res), device=dev), **cams,
+        "rgbs": t(rng.uniform(size=(b, sv, 3, res, res))),
+        "masks": torch.ones((b, sv, 1, res, res), device=dev), **cams,
     }
 
 
 def phase_train(torch, dev, label="8 train path", config=CONFIG,
-                overrides=(), profile=True, loaded=None) -> dict:
+                overrides=(), profile=True, loaded=None,
+                sup_views: int = N_VIEWS) -> dict:
     """The train step of `config` (+ dotlist `overrides`) on a batch of the
     config's per-device batch_size objects at its training_res: 1 warm-up
     and TRAIN_STEPS timed steps
@@ -973,7 +1012,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     train_step = make_train_step(
         lambda batch, step: system.train_loss(batch, step, generator=gen),
         optimizer, ema_decay=0.9999)
-    batch = train_batch(torch, dev, batch_size, res)
+    batch = train_batch(torch, dev, batch_size, res, sup_views)
 
     state, _ = train_step(state, batch)                    # warm-up
     torch.cuda.synchronize()
@@ -1006,7 +1045,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     # its backward once; the render blends (and back-propagates) each of
     # the b x 4 supervision views once.
     n_layers = len(model.transformer)
-    views = batch_size * N_VIEWS
+    views = batch_size * sup_views
     want = {"attention_fwd": 0,
             "attention_fwd_lse": TRAIN_STEPS * n_layers * 2,
             "attention_bwd": TRAIN_STEPS * n_layers,
@@ -1035,7 +1074,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                             for k in watch},
            "ema_change": {k: float((state.ema_params[k] - ema_before[k])
                                    .abs().max()) for k in watch},
-           "batch": f"b={batch_size}, {N_VIEWS}+{N_VIEWS} views at "
+           "batch": f"b={batch_size}, {N_VIEWS}+{sup_views} views at "
                     f"{res}^2, from step {TRAIN_START_STEP}",
            "config": os.path.relpath(config, ROOT),
            "overrides": list(overrides), "card": card_line()}
@@ -1551,8 +1590,10 @@ def phase_general_sampling(torch, dev) -> dict:
 
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    # 12 of the config's 24 layers: the smoke's time goes to phases 13-14
     system = build_system(torch, dev, overrides=(
-        "system.shape_model.width=768", "system.shape_model.dim_heads=48"))
+        "system.shape_model.width=768", "system.shape_model.dim_heads=48",
+        f"system.shape_model.num_layers={GENERAL_SAMPLING_LAYERS}"))
     blocks = system.model.transformer
     if any(blk.attn.packed for blk in blocks):
         raise AssertionError("16 heads of 48 must take the general route")
@@ -1586,7 +1627,8 @@ def phase_general_sampling(torch, dev) -> dict:
            "gaussians_after_filters": int(g.xyz.shape[0]),
            "renders_shape": list(out.renders.shape),
            "config": "configs/diffusionGS_rel.yaml with width 768, "
-                     "dim_heads 48 (16 heads, 24 layers, L = 4098); no "
+                     "dim_heads 48 (16 heads, L = 4098) and 12 of its 24 "
+                     "layers; no "
                      "shipped config uses this layout",
            "card": card_line()}
     print(f"[9c general-route sampling] {json.dumps(res)}", flush=True)
@@ -1760,6 +1802,416 @@ def phase_odd_shapes(torch, dev) -> dict:
     return res
 
 
+# phases 13-14: the training / evaluation CLI on synthetic trees
+CONFIG_SCENE_EVAL = os.path.join(ROOT, "configs",
+                                 "diffusionGS_scene_eval.yaml")
+OBJECTS, OBJECT_VIEWS, OBJECT_RES = 4, 40, 512   # G-Objaverse renders
+SCENES, SCENE_FRAMES, RE10K_HW = 16, 8, (360, 640)
+LAUNCH_STEPS, RESUME_STEPS = 4, 6
+EVAL_PASSES = 4             # launch.EVAL_SEEDS: train_loss passes per eval
+LOADER_BATCHES = 8
+PATH_STEPS = 10             # eval_utils steps_per_transition
+# a parameter, whose EMA and Adam first moment are checked after a restore
+RESTORE_CHECK = "transformer.0.attn.qkv.weight"
+
+
+def smooth_shape(res_h: int, res_w: int, phase: float, seed: int):
+    """An RGB gradient inside an ellipse that turns with `phase`, alpha 1
+    inside and 0 outside, and a depth field over it: renders-like content
+    that PNG and zip-EXR compress as real renders do (not noise)."""
+    import numpy as np
+    y, x = np.mgrid[0:res_h, 0:res_w].astype(np.float32)
+    u, v = x / res_w - 0.5, y / res_h - 0.5
+    c, s_ = np.cos(phase), np.sin(phase)
+    a, b = 0.30 + 0.05 * (seed % 3), 0.18 + 0.04 * c
+    inside = ((u * c + v * s_) / a) ** 2 + ((v * c - u * s_) / b) ** 2 < 1.0
+    rgb = np.stack([0.5 + 0.5 * np.sin(6.0 * u + phase + seed),
+                    0.5 + 0.4 * np.cos(5.0 * v - phase),
+                    0.3 + 0.6 * (u + 0.5) * (v + 0.5)], axis=-1)
+    depth = np.where(inside, 2.2 - 0.6 * np.sqrt(np.maximum(
+        1.0 - (u / a) ** 2 - (v / b) ** 2, 0.0)), 0.0).astype(np.float32)
+    return rgb, inside, depth
+
+
+def write_gobjaverse_tree(root: str, n_objects: int, n_views: int,
+                          res: int) -> tuple:
+    """A G-Objaverse tree in the layout of tests/synthetic_fixtures.py
+    (campos_512_v4/{idx:05d}/{idx:05d}.png + .json + _nd.exr; train.json
+    and test.json), written with the port's utils/exr.py (zip blocks, as
+    the real `_nd.exr` files) and PIL, on 8 threads.  Returns (data dir,
+    image dir, bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from open_diffusiongs_tpu_torch.utils.exr import write_exr
+    data, images = os.path.join(root, "data"), os.path.join(root, "images")
+    os.makedirs(data)
+    uids = [f"000/obj{i}" for i in range(n_objects)]
+    for split in ("train", "test"):
+        with open(os.path.join(data, f"{split}.json"), "w") as f:
+            json.dump(uids, f)
+
+    def view(args):
+        oi, idx = args
+        d = os.path.join(images, uids[oi], "campos_512_v4", f"{idx:05d}")
+        os.makedirs(d)
+        prefix = os.path.join(d, f"{idx:05d}")
+        ang = 2 * np.pi * idx / n_views
+        rgb, inside, depth = smooth_shape(res, res, ang, oi)
+        rgba = np.concatenate([rgb, inside[..., None]], axis=-1)
+        Image.fromarray((rgba * 255.0 + 0.5).astype(np.uint8),
+                        "RGBA").save(prefix + ".png")
+        origin = np.asarray([2.2 * np.cos(ang), 2.2 * np.sin(ang), 0.9])
+        z = -origin / np.linalg.norm(origin)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        with open(prefix + ".json", "w") as f:
+            json.dump({"x": x.tolist(), "y": y.tolist(), "z": z.tolist(),
+                       "origin": origin.tolist()}, f)
+        nd = np.zeros((res, res, 4), np.float32)
+        nd[..., :3] = rgb * 2.0 - 1.0              # normal-like channels
+        nd[..., 3] = depth
+        write_exr(prefix + "_nd.exr", nd, ["R", "G", "B", "A"],
+                  compression="zip")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(view, [(o, i) for o in range(n_objects)
+                             for i in range(n_views)]))
+    nbytes = sum(os.path.getsize(os.path.join(r, f))
+                 for r, _, fs in os.walk(images) for f in fs)
+    return data, images, nbytes
+
+
+def write_re10k_tree(root: str, n_scenes: int, n_frames: int,
+                     hw: tuple) -> str:
+    """An RE10K tree in the layout of tests/synthetic_fixtures.py (per
+    scene a metadata json of frames: image_path, fxfycxcy in pixels, w2c;
+    a full_list.txt), frames at the RE10K frame size: a camera moving
+    forward with a slight turn.  Returns the full_list.txt path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+    h, w = hw
+    paths = []
+
+    def scene(si):
+        sd = os.path.join(root, "images", f"scene{si:03d}")
+        os.makedirs(sd)
+        frames = []
+        for i in range(n_frames):
+            rgb, inside, _ = smooth_shape(h, w, 0.15 * i + si, si)
+            rgb = np.where(inside[..., None], rgb, 0.6 + 0.3 * rgb[..., ::-1])
+            p = os.path.join(sd, f"{i:05d}.png")
+            Image.fromarray((rgb * 255.0 + 0.5).astype(np.uint8)).save(p)
+            yaw = 0.03 * i
+            w2c = np.eye(4)
+            w2c[:3, :3] = [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                           [-np.sin(yaw), 0, np.cos(yaw)]]
+            w2c[:3, 3] = [0.1 * np.cos(0.1 * i), 0.05 * np.sin(0.1 * i),
+                          0.2 * i]
+            frames.append({"image_path": p,
+                           "fxfycxcy": [0.5 * w, 0.5 * w, w / 2.0, h / 2.0],
+                           "w2c": w2c.tolist()})
+        mp = os.path.join(root, "metadata", f"scene{si:03d}.json")
+        with open(mp, "w") as f:
+            json.dump({"scene_name": f"scene{si:03d}", "frames": frames}, f)
+        return mp
+
+    os.makedirs(os.path.join(root, "metadata"))
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(scene, range(n_scenes)))
+    full_list = os.path.join(root, "full_list.txt")
+    with open(full_list, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return full_list
+
+
+def read_csv(path: str) -> list:
+    import csv
+    with open(path) as f:
+        return [r for r in csv.reader(f) if r]
+
+
+def launch_call(torch, dev, argv: list, modules) -> tuple:
+    """launch.main(argv) in process: its record, the kernels' launch counts
+    of the call (set to 0 just before it, read just after), its host
+    seconds and collector seconds, and the peak device memory."""
+    from open_diffusiongs_tpu_torch import launch
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(*modules)
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        record = launch.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": v for m in modules
+              for n, v in launch_counts(m).items()}
+    return record, counts, {"seconds": secs, "gc_seconds": gc_clock.seconds,
+                            "stages": dict(record["seconds"]),
+                            "max_memory_allocated_bytes":
+                                torch.cuda.max_memory_allocated(dev)}
+
+
+def drop_record(torch, record: dict) -> None:
+    """Free a launch record's system and state on the card."""
+    record.clear()
+    collect_garbage()
+    torch.cuda.empty_cache()
+
+
+def expected_counts(steps=0, evals=0, sample_views=(), path_frames=0,
+                    n_layers=24, views=0, samples=0) -> dict:
+    """Launch counts derived from the config: per training step every DiT
+    layer runs the forward with lse twice (block checkpointing) and the
+    backward once, and the render blends and back-propagates each of the
+    `views` (b x views per object) supervision views; each eval pass runs
+    train_loss's forward once without grad; each sampled batch of
+    `samples` scenes runs
+    STEPS x n_layers attention launches and blends (STEPS - 1) x noisy +
+    all views per scene; a path video renders `path_frames` views."""
+    blend_sample = samples * sum((STEPS - 1) * (v - 1) + v
+                                 for v in sample_views)
+    return {
+        "attention.LAUNCHES": (evals * EVAL_PASSES * n_layers
+                               + len(sample_views) * STEPS * n_layers),
+        "attention.LAUNCHES_STATS": steps * n_layers * 2,
+        "attention.LAUNCHES_BWD": steps * n_layers,
+        "attention.LAUNCHES_SMAX": 0, "attention.LAUNCHES_FULL": 0,
+        "attention.LAUNCHES_MHA_FULL": 0,
+        "blend_kernel.LAUNCHES": (steps + evals * EVAL_PASSES) * views
+        + blend_sample + path_frames,
+        "blend_kernel.LAUNCHES_BWD": steps * views,
+    }
+
+
+def phase_launch_train(torch, dev, tmp: str) -> dict:
+    """13: object training through `launch` on a synthetic G-Objaverse
+    tree: --train --max_steps 4, a resume to 6, then --export from that
+    checkpoint (module docstring)."""
+    import statistics
+
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.data.loader import PrefetchLoader
+    from open_diffusiongs_tpu_torch.data.objaverse import ObjaverseDataset
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    mods = (attention, blend_kernel)
+    t0 = time.perf_counter()
+    data, images, tree_bytes = write_gobjaverse_tree(
+        tmp, OBJECTS, OBJECT_VIEWS, OBJECT_RES)
+    tree_s = time.perf_counter() - t0
+    # paths, plus: no LPIPS weights ship (system.use_lpips=false); one
+    # trial dir across the runs (use_timestamp=false); an eval at the
+    # save's step; only the forced final saves; a log line every step of
+    # the first run, for its per-step times
+    overrides = [f"exp_root_dir={tmp}/outputs", f"data.local_dir={data}",
+                 f"data.image_dir={images}/", "use_timestamp=false",
+                 "system.use_lpips=false",
+                 f"trainer.eval_every_n_steps={LAUNCH_STEPS}",
+                 "checkpoint.every_n_train_steps=1000000"]
+    cfg = load_config(CONFIG, cli_args=overrides, makedirs=False)
+    b = int(cfg.data["batch_size"])
+    views = int(cfg.data["gen_views"]) + int(cfg.data["sel_views"])
+    base = ["--config", CONFIG, "--device", "cuda"]
+
+    # the loader alone: 8 batches of the config's b and num_workers
+    dataset = ObjaverseDataset(cfg.data, split="train", seed=cfg.seed)
+    loader = PrefetchLoader(dataset, b, shuffle=True, seed=cfg.seed,
+                            num_threads=int(cfg.data["num_workers"]))
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        stamps = []
+        for i, _ in enumerate(loader):
+            stamps.append(time.perf_counter() - t0)
+            if i + 1 == LOADER_BATCHES:
+                break
+    loader_out = {"samples_per_second": LOADER_BATCHES * b / stamps[-1],
+                  "samples_per_second_after_first": (LOADER_BATCHES - 1) * b
+                  / (stamps[-1] - stamps[0]),
+                  "batch_seconds": stamps, "gc_seconds": gc_clock.seconds}
+
+    # phase 8's step in memory at the loader's 4 + 6 views: the baseline
+    # of the step with the loader in the loop
+    in_memory = phase_train(torch, dev, "13 in-memory step", CONFIG,
+                            profile=False, sup_views=views)
+    collect_garbage()
+    torch.cuda.empty_cache()
+    first, c1, w1 = launch_call(torch, dev, base + [
+        "--train", "--max_steps", str(LAUNCH_STEPS), *overrides,
+        "trainer.log_every_n_steps=1"], mods)
+    trial = first["trial_dir"]
+    save1 = first["saves"][-1]
+    drop_record(torch, first)
+    resumed, c2, w2 = launch_call(torch, dev, base + [
+        "--train", "--max_steps", str(RESUME_STEPS), *overrides,
+        f"resume={trial}/ckpts"], mods)
+    state = resumed["state"]
+    saved = {"param": state.params[RESTORE_CHECK],
+             "ema": state.ema_params[RESTORE_CHECK],
+             "adam_mu": state.optimizer.state_dict()["mu"][RESTORE_CHECK]}
+    saved = {k: v.detach().cpu().clone() for k, v in saved.items()}
+    save2, restore2 = resumed["saves"][-1], resumed["seconds"]["restore"]
+    drop_record(torch, resumed)
+    os.remove(os.path.join(trial, "ckpts", f"{LAUNCH_STEPS}.pt"))
+    exported, c3, w3 = launch_call(torch, dev, base + [
+        "--export", *overrides, f"resume={trial}/ckpts",
+        "trainer.limit_val_batches=1"], mods)
+    state = exported["state"]
+    restored = {"param": state.params[RESTORE_CHECK],
+                "ema": state.ema_params[RESTORE_CHECK],
+                "adam_mu": state.optimizer.state_dict()["mu"][RESTORE_CHECK]}
+    restored_equal = {k: bool(torch.equal(v.cpu(), saved[k]))
+                      for k, v in restored.items()}
+    export_dir, restore3 = exported["out_dir"], exported["seconds"]["restore"]
+    export_seconds = exported["seconds"]
+    drop_record(torch, exported)
+    export_files = sorted(f for _, _, fs in os.walk(export_dir) for f in fs)
+
+    rows = read_csv(os.path.join(trial, "metrics.csv"))
+    head, data_rows = rows[0], rows[1:]
+    col = {k: head.index(k) for k in head}
+    steps = [int(r[0]) for r in data_rows]
+    step_s = [1.0 / float(r[col["steps_per_sec"]]) for r in data_rows
+              if int(r[0]) <= LAUNCH_STEPS]
+    wait_s = [float(r[col["loader_wait_s"]]) for r in data_rows]
+    evals = read_csv(os.path.join(trial, "eval_metrics.csv"))
+    n_layers = 24
+    want1 = expected_counts(steps=LAUNCH_STEPS, evals=2, views=b * views)
+    want2 = expected_counts(steps=RESUME_STEPS - LAUNCH_STEPS, evals=1,
+                            views=b * views)
+    want3 = expected_counts(sample_views=(int(cfg.data["gen_views"]),),
+                            samples=1, path_frames=(int(
+                                cfg.data["gen_views"]) - 1) * PATH_STEPS + 1)
+    med = statistics.median(step_s[1:])
+    out = {"tree": {"objects": OBJECTS, "views": OBJECT_VIEWS,
+                    "res": OBJECT_RES, "bytes": tree_bytes,
+                    "write_s": tree_s},
+           "loader_alone": loader_out,
+           "step_seconds": step_s, "median_step_seconds_after_first": med,
+           "loader_wait_seconds": wait_s,
+           "in_memory_seconds_per_step": in_memory["seconds_per_step"],
+           "samples_per_second": b / med,
+           "note": f"step {LAUNCH_STEPS}'s time holds the eval at the save",
+           "max_memory_allocated_bytes": w1["max_memory_allocated_bytes"],
+           "checkpoint": {"bytes": save2["bytes"],
+                          "save_seconds": [save1["seconds"],
+                                           save2["seconds"]],
+                          "restore_seconds": [restore2, restore3]},
+           "overflow_frac": [float(r[col["overflow_frac"]])
+                             for r in data_rows],
+           "losses": [float(r[col["loss"]]) for r in data_rows],
+           "metrics_steps": steps,
+           "eval_rows": [r[0] for r in evals[1:]],
+           "restored_equal": restored_equal,
+           "launches": {"train": c1, "resume": c2, "export": c3},
+           "expected_launches_per_step": {
+               "attention_fwd_lse": 2 * n_layers, "attention_bwd": n_layers,
+               "blend_fwd": b * views, "blend_bwd": b * views},
+           "calls": {"train": w1, "resume": w2, "export": w3},
+           "export": {"seconds": export_seconds, "files": export_files},
+           "batch": f"b={b}, {views} views ({cfg.data['gen_views']} input) "
+                    f"at {cfg.data['training_res'][0]}^2 from "
+                    f"{OBJECT_RES}^2 renders",
+           "overrides": overrides, "card": card_line()}
+    print(f"[13 launch train] {json.dumps(out)}", flush=True)
+    if steps != list(range(1, LAUNCH_STEPS + 2)):
+        raise AssertionError(f"metrics.csv steps {steps}")
+    if [r[0] for r in evals[1:]] != ["0", str(LAUNCH_STEPS),
+                                     str(LAUNCH_STEPS)]:
+        raise AssertionError(f"eval_metrics.csv steps {evals}")
+    if evals[2] != evals[3]:
+        raise AssertionError(f"the eval after the restore differs from the "
+                             f"eval at the save: {evals[2]} != {evals[3]}")
+    if not all(restored_equal.values()):
+        raise AssertionError(f"restored state differs: {restored_equal}")
+    if not all(np.isfinite(float(x)) for r in data_rows + evals[1:]
+               for x in r[1:]):
+        raise AssertionError("non-finite metrics")
+    for got, want in ((c1, want1), (c2, want2), (c3, want3)):
+        if got != want:
+            raise AssertionError(f"launch kernel launches {got} != {want}")
+    if not {".ply", ".png", ".avi"} <= {os.path.splitext(f)[1]
+                                        for f in export_files}:
+        raise AssertionError(f"export wrote {export_files}")
+    out["launches_total"] = {k: c1[k] + c2[k] + c3[k] for k in c1}
+    return out
+
+
+def phase_scene_eval(torch, dev, tmp: str) -> dict:
+    """14: scene eval through `launch --validate` at the config's
+    eval_batch_size on a synthetic RE10K tree, then the metric CLI on its
+    dumps (module docstring)."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch import eval_scene_result
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    full_list = write_re10k_tree(tmp, SCENES, SCENE_FRAMES, RE10K_HW)
+    tree_s = time.perf_counter() - t0
+    # paths, and one batch of the eval set
+    overrides = [f"exp_root_dir={tmp}/outputs",
+                 f"data.local_dir={full_list}",
+                 f"data.local_eval_dir={full_list}",
+                 "trainer.limit_val_batches=1"]
+    cfg = load_config(CONFIG_SCENE_EVAL, cli_args=overrides, makedirs=False)
+    b = int(cfg.data["eval_batch_size"])
+    n_in = int(cfg.data["sel_views"]) + 1
+    record, counts, call = launch_call(
+        torch, dev, ["--config", CONFIG_SCENE_EVAL, "--validate",
+                     "--device", "cuda", *overrides],
+        (attention, blend_kernel))
+    out_dir, seconds = record["out_dir"], record["seconds"]
+    scenes, overflow = record["scenes"], record["overflow"]
+    drop_record(torch, record)
+    files = os.listdir(out_dir)
+    with GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        metrics = eval_scene_result.main(["--result_dir", out_dir])
+        metric_s = time.perf_counter() - t0
+    want = expected_counts(sample_views=(n_in,), samples=b,
+                           path_frames=b * ((n_in - 1) * PATH_STEPS + 1))
+    split = {k: seconds[k] for k in ("load", "sampler", "dumps",
+                                     "trajectory_videos",
+                                     "ply_and_path_video")}
+    batch_s = sum(split.values())
+    out = {"tree": {"scenes": SCENES, "frames": SCENE_FRAMES,
+                    "frame_hw": list(RE10K_HW), "write_s": tree_s},
+           "scenes": scenes, "batch_seconds": batch_s,
+           "seconds_per_scene": batch_s / b,
+           "split_seconds": split,
+           "setup_seconds": seconds["setup"], "call": call,
+           "max_memory_allocated_bytes": call["max_memory_allocated_bytes"],
+           "overflow": overflow, "launches": counts,
+           "expected_launches": want,
+           "metric_cli": metrics, "metric_cli_seconds": metric_s,
+           "metric_cli_gc_seconds": gc_clock.seconds,
+           "batch": f"b={b}, {n_in} views at "
+                    f"{cfg.data['training_res'][0]}^2 from "
+                    f"{RE10K_HW[0]}x{RE10K_HW[1]} frames",
+           "overrides": overrides, "card": card_line()}
+    print(f"[14 scene eval] {json.dumps(out)}", flush=True)
+    for suffix, n in ((".npz", b), ("_traj_xt.avi", b),
+                      ("_traj_xstart.avi", b), (".ply", b),
+                      ("_path.avi", b), (".png", b)):
+        got = sum(f.endswith(suffix) for f in files)
+        if got != n:
+            raise AssertionError(f"{got} files *{suffix}, want {n}")
+    if "val_metrics.json" not in files:
+        raise AssertionError("no val_metrics.json")
+    if counts != want:
+        raise AssertionError(f"scene eval launches {counts} != {want}")
+    if not (np.isfinite(metrics["psnr"]) and np.isfinite(metrics["ssim"])
+            and metrics["num_scenes"] == b):
+        raise AssertionError(f"metric CLI: {metrics}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1815,6 +2267,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_512 = timed("12 512^2 train step", phase_train_512, torch, dev,
                           pretrained, spot)
+    torch.cuda.empty_cache()
+    # 13-14 write their trees, trial dirs and checkpoints in temporary
+    # directories, deleted on the way out
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_train = timed("13 launch train", phase_launch_train, torch,
+                             dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_eval = timed("14 scene eval", phase_scene_eval, torch, dev, tmp)
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
     print("[host split] " + json.dumps({
         f"{RES}^2": main_res["host_split"],
@@ -1828,6 +2288,13 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"JAX-side modules imported: {leaked}")
 
+    def cli_launches(counter):
+        """A main-path row's launches in phases 13 (the train, resume and
+        export calls) and 14."""
+        return {"launches_launch_train":
+                    launch_train["launches_total"][counter],
+                "launches_scene_eval": scene_eval["launches"][counter]}
+
     src = "open_diffusiongs_tpu_torch/csrc/"
     kernels = [
         {"name": "flash_mha_packed", "route": "cuda",
@@ -1838,7 +2305,8 @@ def main() -> int:
          "plain_ms": attn["plain_ms"], **roof(attn),
          "library_ms": attn["sdpa_ms"],
          **{k: v for k, v in attn.items() if k.endswith("_L16386")},
-         "launches_512": sample_512["init"]["launches"]["attention"]},
+         "launches_512": sample_512["init"]["launches"]["attention"],
+         **cli_launches("attention.LAUNCHES")},
         {"name": "blend_tiles", "route": "cuda",
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
@@ -1846,7 +2314,8 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in blend),
          "ms": blend[0]["ms"], "plain_ms": blend[0]["plain_ms"],
          **roof(blend[0]), "library_ms": None, **trained_times(blend),
-         "launches_512": sample_512["init"]["launches"]["blend"]},
+         "launches_512": sample_512["init"]["launches"]["blend"],
+         **cli_launches("blend_kernel.LAUNCHES")},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -1856,7 +2325,8 @@ def main() -> int:
          "plain_ms": attn_train["fwd_stats_plain_ms"],
          **roof(attn_train["fwd_stats_bound"]),
          "library_ms": attn_train["sdpa_fwd_ms"],
-         "launches_512": train_512["launches"]["attention_fwd_lse"]},
+         "launches_512": train_512["launches"]["attention_fwd_lse"],
+         **cli_launches("attention.LAUNCHES_STATS")},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
@@ -1865,7 +2335,8 @@ def main() -> int:
          "ms": attn_train["bwd_ms"], "plain_ms": attn_train["bwd_plain_ms"],
          **roof(attn_train["bwd_bound"]),
          "library_ms": attn_train["sdpa_bwd_ms"],
-         "launches_512": train_512["launches"]["attention_bwd"]},
+         "launches_512": train_512["launches"]["attention_bwd"],
+         **cli_launches("attention.LAUNCHES_BWD")},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
@@ -1874,7 +2345,8 @@ def main() -> int:
          "ms": blend_bwd[0]["ms"], "plain_ms": blend_bwd[0]["plain_ms"],
          **roof(blend_bwd[0]), **trained_times(blend_bwd),
          "library_ms": None,
-         "launches_512": train_512["launches"]["blend_bwd"]},
+         "launches_512": train_512["launches"]["blend_bwd"],
+         **cli_launches("blend_kernel.LAUNCHES_BWD")},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",

@@ -72,4 +72,7 @@ def select_device(device=None) -> torch.device:
 
 def _register_builtins():
     """Import submodules for their @register side effects."""
+    from .data import objaverse as _obja  # noqa: F401
+    from .data import re10k as _re10k  # noqa: F401
     from .systems import object_system as _obj  # noqa: F401
+    from .systems import scene_system as _scene  # noqa: F401

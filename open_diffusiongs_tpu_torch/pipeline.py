@@ -166,7 +166,7 @@ class DiffusionGSPipeline:
         (preprocess, camera_template, sampler, transfer, filters, ply),
         each edge synchronized with the device."""
         dev = self.system.device
-        clock = _StageClock(stage_seconds, dev)
+        clock = StageClock(stage_seconds, dev)
         conds = []
         for image in images:
             if isinstance(image, str):
@@ -210,7 +210,7 @@ class DiffusionGSPipeline:
         return results
 
 
-class _StageClock:
+class StageClock:
     """Adds the host seconds since the previous edge to `seconds[name]` at
     each `stage(name)`, synchronizing a CUDA device at every edge; does
     nothing when `seconds` is None."""

@@ -2,7 +2,8 @@
 config surface.
 
 Counterpart of open_diffusiongs_tpu/systems/builder.py:49-151 for the
-object system, from a config read by utils/config.py::load_config.  The
+object and scene systems, from a config read by
+utils/config.py::load_config.  The
 same configs/*.yaml drive both packages (ROADMAP rule 4): keys that steer
 TPU-only machinery are accepted, ignored, and named in one log line.
 """
@@ -89,22 +90,29 @@ def raster_config(cfg: Dict[str, Any], ignored: Optional[list] = None
 def build_system(system_type: str, system_cfg: Dict[str, Any],
                  bf16: bool = True, raster: Optional[RasterizeConfig] = None,
                  device: torch.device | str = "cpu"):
-    """system_type: 'diffusion-gs-system' (the scene system is not ported
-    yet).  Returns the system with its (uninitialized) model on `device`:
-    call `init_params`, then `load_pretrained` (the config's weight
-    bootstraps)."""
+    """system_type: 'diffusion-gs-system' | 'diffusion-gs-scene-system'
+    (the scene system's DiT defaults to the `plk` ray PE and its config
+    takes save_intermediate_video / save_result_for_eval, JAX
+    builder.py:85-88, :116-119).  Returns the system with its
+    (uninitialized) model on `device`: call `init_params`, then
+    `load_pretrained` (the config's weight bootstraps)."""
     from .. import find
     from .object_system import ObjectSystemConfig
+    from .scene_system import SCENE_SYSTEM, SceneSystemConfig
 
     cfg = dict(system_cfg)
     ignored: list = []
     loss = dict(cfg.get("loss", {}))
     noise = dict(cfg.get("noise_scheduler", {}))
+    sm = shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
+                            ignored=ignored)
+    scene = system_type == SCENE_SYSTEM
+    if scene:
+        sm.setdefault("ray_pe_type", "plk")
     kwargs: Dict[str, Any] = dict(
         num_inference_steps=cfg.get("num_inference_steps", 30),
         num_train_timesteps=noise.get("num_train_timesteps", 1000),
-        shape_model=shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
-                                       ignored=ignored),
+        shape_model=sm,
     )
     # the stage-2 bootstraps, when set (JAX builder.py:96-103; missing,
     # null or empty builds without them)
@@ -128,10 +136,15 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
             kwargs[k] = cfg[k]
     if "bg_color" in cfg:
         kwargs["bg_color"] = tuple(cfg["bg_color"])
+    if scene:
+        for k in ("save_intermediate_video", "save_result_for_eval"):
+            if k in cfg:
+                kwargs[k] = cfg[k]
     if ignored:
         log.info("open_diffusiongs_tpu_torch: ignoring TPU-only config keys: "
                  "%s", ", ".join(ignored))
-    return find(system_type)(ObjectSystemConfig(**kwargs), device=device)
+    cfg_cls = SceneSystemConfig if scene else ObjectSystemConfig
+    return find(system_type)(cfg_cls(**kwargs), device=device)
 
 
 def build_optimizer_config(system_cfg: Dict[str, Any],

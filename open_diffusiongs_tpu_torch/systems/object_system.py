@@ -240,14 +240,17 @@ class ObjectSystem:
                fxfycxcy: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               noise_fn=None) -> Dict[str, Any]:
+               noise_fn=None,
+               return_trajectory: bool = False) -> Dict[str, Any]:
         """Generation.  cond_images [b, n_cond, 3, h, w]; c2w / fxfycxcy
         [b, v_total, ...] with the condition views first.  `noise` (the
         initial x_T) and `noise_fn` (per-step noise) replace draws from
         `generator` when given.
 
         Returns sample, renders (every view, t = 0), gaussians, alpha and
-        the t = 0 render's overflow counters."""
+        the t = 0 render's overflow counters; with `return_trajectory`
+        also trajectory = (x_t, pred_x0), each [T-1, b, v_noisy, 3, h, w]
+        (JAX object_system.py:240-260)."""
         b, n_cond, _, h, w = cond_images.shape
         v_total = c2w.shape[1]
         if noise is None:
@@ -263,6 +266,7 @@ class ObjectSystem:
         # the [-1, 1] clamp (pipline_obj.py:302)
         out = p_sample_loop(self.sched_infer, loop_fn, cond_images.float(),
                             noise, generator, clip_denoised=False,
+                            return_trajectory=return_trajectory,
                             final_model_fn=final_fn, noise_fn=noise_fn)
         gaussians, alpha, counters = out.pop("aux")
         out.update(gaussians=gaussians, alpha=alpha, **counters)
