@@ -167,6 +167,38 @@ Phases, one summary line each (every failure raises and exits non-zero):
                scene split at synchronized edges into load, sampler,
                dumps (npz + grid PNG), trajectory videos and PLY + path
                video, peak memory, the overflow counters.
+  15. serving surface
+               a. the density kernel (csrc/density_grid.cu) against
+                  density_grid_ref on the card: a synthetic shell of 20k
+                  Gaussians at resolution 128 (every slab), phase 5's
+                  filtered Gaussians and phase 11's trained-statistics
+                  512^2 Gaussians at 256 (every 8th slab; the latter's
+                  field has a surface on those planes) (atol 1e-5 + rtol
+                  1e-5, and iso crossings at 0.005 within 0.01 %); pairs,
+                  the bound (f32 operations at 67 TFLOP/s or one exp a
+                  pair at the SFU rate, SFU_PER_S), the kernel by CUDA
+                  events on all slabs and on the twin's, the twin's time;
+               b. extract_mesh on the 300-Gaussian ball of
+                  tests/test_mesh.py:74-93 at 256 under its bars, the
+                  kernel grid's mesh against the twin grid's (vertex
+                  counts within 0.1 %, symmetric Hausdorff <= one voxel),
+                  save_mesh_obj; pipe.batch(extract_mesh=True) on phase
+                  5's input with phase 5's system (one density launch) and
+                  the host split of its mesh (density / marching tets /
+                  clean + repair + remesh / largest component / decimate /
+                  OBJ); the same split for phase 11's trained-statistics
+                  512^2 Gaussians, meshed from 15a's grid of them;
+               c. W8A8: one 256^2 asset with quant_int8 (phase 5's weights
+                  and seed; seconds and device ms of the same call, traced
+                  by torch.profiler's CUDA activity; exactly 24 x 4 x 30
+                  int8 products), its renders' PSNR against phase 5's, and
+                  QuantLinear against the bf16 Linear at M = 4098 and
+                  16386 beside their bounds (int8 at 1,979 TOPS);
+               d. U²-Net (full spec, synthetic weights in a temporary NPZ):
+                  u2net_alpha at 320^2 timed, the card's d0 against the CPU
+                  (max 1.5e-3, mean 1e-5); then run.main with --matting
+                  u2net --extract-mesh and U2NET_NPZ set: PLY, renders and
+                  a non-empty mesh.obj.
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -1177,12 +1209,15 @@ def check_asset(out, res: int, header: str = None) -> None:
 
 
 def sample_asset(torch, dev, pipe, res: int, label: str,
-                 profiled: bool = True, warm_up: bool = True) -> dict:
+                 profiled: bool = True, warm_up: bool = True,
+                 keep: list = None) -> dict:
     """DiffusionGSPipeline.batch on IMAGE at res^2: a warm-up call, a
     timed call (host clock, ending in synchronize; stages split at
-    synchronized edges; launches counted; peak memory; PLY written), and
-    with `profiled` one more call under torch.profiler."""
-    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    synchronized edges; launches counted, the int8 products of a
+    quant_int8 model too; peak memory; PLY written), and with `profiled`
+    one more call under torch.profiler.  The timed call's output is
+    appended to `keep` when given."""
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel, quant
     kw = dict(resolution=res, n_views=N_VIEWS, matting="border")
     if warm_up:
         pipe.batch([IMAGE], **kw)
@@ -1191,7 +1226,7 @@ def sample_asset(torch, dev, pipe, res: int, label: str,
     stages = {}
     with tempfile.TemporaryDirectory() as tmp:
         ply = os.path.join(tmp, "sphere.ply")
-        reset_launches(attention, blend_kernel)
+        reset_launches(attention, blend_kernel, quant)
         with GcClock() as gc_clock:
             t0 = time.perf_counter()
             out = pipe.batch([IMAGE], save_ply=[ply], stage_seconds=stages,
@@ -1199,7 +1234,8 @@ def sample_asset(torch, dev, pipe, res: int, label: str,
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         launches = {"attention": attention.LAUNCHES,
-                    "blend": blend_kernel.LAUNCHES}
+                    "blend": blend_kernel.LAUNCHES,
+                    "int8_mm": quant.LAUNCHES}
         others = {n: v for m in (attention, blend_kernel)
                   for n, v in launch_counts(m).items()
                   if n != "LAUNCHES" and v}
@@ -1208,7 +1244,10 @@ def sample_asset(torch, dev, pipe, res: int, label: str,
             header = f.read(4096).split(b"end_header")[0].decode("ascii")
     n_layers = len(pipe.system.model.transformer)
     want = {"attention": n_layers * STEPS,
-            "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS}
+            "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS,
+            # q/k/v, proj, fc1, fc2 of every block at every step
+            "int8_mm": (n_layers * 4 * STEPS
+                        if pipe.system.model.quant_int8 else 0)}
     res_out = {"seconds_per_asset": secs, "gc_seconds": gc_clock.seconds,
                "max_memory_allocated_bytes":
                    torch.cuda.max_memory_allocated(dev),
@@ -1232,16 +1271,18 @@ def sample_asset(torch, dev, pipe, res: int, label: str,
         res_out["stages_s"] = stages
     print(f"[{label}] {json.dumps(res_out)}", flush=True)
     check_asset(out, res, header)
+    if keep is not None:
+        keep.append(out)
     if launches != want or others:
         raise AssertionError(f"kernel launches {launches} (others "
                              f"{others}) != {want}")
     return res_out
 
 
-def phase_main(torch, dev, system) -> dict:
+def phase_main(torch, dev, system, keep: list) -> dict:
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
     return sample_asset(torch, dev, DiffusionGSPipeline(system), RES,
-                        "5 main path")
+                        "5 main path", keep=keep)
 
 
 def synthetic_reference_ckpt(torch, dev, config: str, path: str) -> dict:
@@ -1308,10 +1349,10 @@ def phase_load(torch, dev, tmp: str):
     return res, pipe, out, {k: src[k] for k in SPOT_CHECK}
 
 
-def phase_sample_512(torch, dev, pipe, pretrained: str) -> dict:
+def phase_sample_512(torch, dev, pipe, pretrained: str, keep: list) -> dict:
     """11: 512^2 sampling from the loaded pipeline at init statistics
     (warm-up, timed, profiled) and, through from_pretrained's overrides,
-    at trained statistics (timed)."""
+    at trained statistics (timed; its output appended to `keep`)."""
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
     init = sample_asset(torch, dev, pipe, RES_512, "11 512^2 sampling, init")
     scaling, opacity = trained_stat_offsets(RES_512)
@@ -1327,7 +1368,7 @@ def phase_sample_512(torch, dev, pipe, pretrained: str) -> dict:
     # shape was made by the init asset's three calls
     trained = sample_asset(torch, dev, trained_pipe, RES_512,
                            "11 512^2 sampling, trained statistics",
-                           profiled=False, warm_up=False)
+                           profiled=False, warm_up=False, keep=keep)
     return {"init": init, "trained": dict(trained, overrides=overrides)}
 
 
@@ -2212,6 +2253,484 @@ def phase_scene_eval(torch, dev, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. The serving surface: the density kernel, mesh export, W8A8 serving,
+#     U²-Net matting and the CLI
+# ---------------------------------------------------------------------------
+
+DENSITY_TOL = dict(atol=1e-5, rtol=1e-5)   # kernel vs twin, f32 sums
+DENSITY_ISO = 0.005                        # extract_mesh's density_thresh
+ISO_COUNT_REL = 1e-4                       # iso crossings, kernel vs twin
+# f32 operations a (point, Gaussian) pair needs: the offset (3), the
+# quadratic form (15), the tests (2), opacity x weight and the sum (2),
+# the exponential's argument (3); and one exponential a pair, at one
+# MUFU.EX2 each: 16 a clock on each of 132 SMs at the 1.98 GHz boost
+DENSITY_OPS_PER_PAIR = 25
+SFU_PER_S = 16 * 132 * 1.98e9
+TWIN_CHUNK_PAIRS = 1 << 26                 # the twin's pairs alive at once
+# the twin at 256 runs on every 8th slab (32 of 256; ~11 s a case on all of
+# them), and the kernel is timed on those too.  Every slab runs the same
+# code on its own list and z range, so 32 planes spread over the grid, one
+# case with a surface on them, hold every path of the kernel
+TWIN_SLAB_STRIDE_256 = 8
+MESH_VERTS_REL = 1e-3                      # kernel vs twin grid's meshes
+BALL_RES = 256
+INT8_PEAK = 1979e12                        # dense int8 TOPS (data sheet)
+QUANT = "system.shape_model.quant_int8=true"
+# the TPU's f32 reference figure for W8A8 (docs/PERF_NOTES.md), printed
+# beside this run's PSNR; not a bar
+JAX_INT8_PSNR_DB = 39.4
+QUANT_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+U2NET_MAX_ERR, U2NET_MEAN_ERR = 1.5e-3, 1e-5   # the golden's bars
+U2NET_SIZE = 320
+
+
+def shell_gaussians(n: int, seed: int):
+    """n Gaussians on a shell of radius 0.5-0.6 with small anisotropic
+    scales, random rotations and opacities (NumpyGaussians)."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops.gaussians import NumpyGaussians
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return NumpyGaussians(
+        xyz=(dirs * rng.uniform(0.5, 0.6, (n, 1))).astype(np.float32),
+        features=np.zeros((n, 1, 3), np.float32),
+        scaling=rng.uniform(-4.5, -3.5, (n, 3)).astype(np.float32),
+        rotation=rng.normal(size=(n, 4)).astype(np.float32),
+        opacity=rng.normal(1.0, 1.0, (n, 1)).astype(np.float32))
+
+
+def ball_gaussians():
+    """The 300-Gaussian ball of tests/test_mesh.py:74-93."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops.gaussians import NumpyGaussians
+    rng = np.random.default_rng(0)
+    n = 300
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    pts = dirs * rng.uniform(0, 0.3, (n, 1))
+    return NumpyGaussians(
+        pts.astype(np.float32), np.zeros((n, 1, 3), np.float32),
+        np.full((n, 3), -3.0, np.float32),
+        np.tile(np.asarray([1, 0, 0, 0], np.float32), (n, 1)),
+        np.full((n, 1), 2.0, np.float32))
+
+
+def density_args(torch, dev, g, res: int):
+    """ops/mesh.py's host steps for g at res: the kernel's arguments on the
+    card, slab_rows, center and scale."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops import mesh
+    xyz_n, inv, opa, center, scale = mesh.density_inputs(g)
+    lin, slab_z, idx, counts, rows = mesh.slab_tables(xyz_n, opa, res)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (lin, slab_z, idx, counts, xyz_n, inv, opa)]
+    return args, rows, center, scale
+
+
+def iso_crossings(grid, iso: float = DENSITY_ISO) -> int:
+    """Grid edges (along x, y and z) whose ends lie on both sides of iso."""
+    above = grid > iso
+    return int(sum(int((above.narrow(d, 1, grid.shape[d] - 1)
+                        != above.narrow(d, 0, grid.shape[d] - 1)).sum())
+                   for d in range(3)))
+
+
+def density_case(torch, dev, g, res: int, label: str,
+                 twin_stride: int = 1) -> tuple:
+    """The density kernel against density_grid_ref on the card, the twin
+    on every `twin_stride`-th slab (the kernel's grid compared on those
+    slabs' z planes), with the pairs this input needs and the bound.  The
+    twin is timed once by the host clock around a synchronized call, the
+    kernel by CUDA events on all slabs and on the twin's.  Returns the
+    record and what ops/mesh.py::gaussian_density_grid returns for g
+    (grid on the host, center, scale), made here by its own steps (host
+    steps, the kernel, the copy; their host seconds are the record's
+    density_s)."""
+    from open_diffusiongs_tpu_torch.ops import mesh
+    t0 = time.perf_counter()
+    args, rows, center, scale = density_args(torch, dev, g, res)
+    grid = mesh.density_grid(*args, slab_rows=rows)
+    grid_host = grid.cpu().numpy()
+    density_s = time.perf_counter() - t0
+    slab_z, counts = args[1], args[3]
+    sub = [a[::twin_stride].contiguous() if i in (1, 2, 3) else a
+           for i, a in enumerate(args)]
+    zs = torch.cat([torch.arange(int(z0), int(z1), device=dev)
+                    for z0, z1 in sub[1].tolist()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = mesh.density_grid_ref(*sub, chunk_pairs=TWIN_CHUNK_PAIRS)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    grid_s, ref = grid[:, :, zs], ref[:, :, zs]
+    err = (grid_s - ref).abs()
+    over = int((err > DENSITY_TOL["atol"]
+                + DENSITY_TOL["rtol"] * ref.abs()).sum())
+    iso_k, iso_r = iso_crossings(grid_s), iso_crossings(ref)
+    ms = cuda_ms(lambda: mesh.density_grid(*args, slab_rows=rows), iters=5)
+    ms_sub = cuda_ms(lambda: mesh.density_grid(*sub, slab_rows=rows),
+                     iters=5)
+    pts = (slab_z[:, 1] - slab_z[:, 0]).long() * res * res
+    pairs = int((counts.long() * pts).sum())
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + grid.numel() * 4)
+    t_ops = pairs * DENSITY_OPS_PER_PAIR / PEAK_OPS["f32"]
+    t_exp = pairs / SFU_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    out = {"view": label, "res": res, "gaussians": int(g.xyz.shape[0]),
+           "slabs": int(counts.numel()), "max_list": int(counts.max()),
+           "pairs": pairs, "max_abs_err": float(err.max()),
+           "over_tol": over, "max": float(ref.max()),
+           "iso_crossings": iso_k, "iso_crossings_twin": iso_r,
+           "ms": ms, "plain_ms": plain_ms,
+           "twin_slabs": int(sub[3].numel()),
+           "twin_pairs": int((sub[3].long() * (sub[1][:, 1] - sub[1][:, 0])
+                              .long() * res * res).sum()),
+           "ms_on_twin_slabs": ms_sub, "density_s": density_s,
+           "bound_ms": 1e3 * max(t_ops, t_exp, t_bytes),
+           "bound_by": ("operations" if max(t_ops, t_exp) >= t_bytes
+                        else "bytes"),
+           "bound_ops_ms": 1e3 * t_ops, "bound_exp_ms": 1e3 * t_exp,
+           "sfu_exp_per_s": SFU_PER_S, "card": card_line()}
+    print(f"[15a density, {label}] {json.dumps(out)}", flush=True)
+    if over or not bool(torch.isfinite(grid).all()):
+        raise AssertionError(f"density kernel vs twin ({label}): {over} "
+                             f"points over {DENSITY_TOL}")
+    if abs(iso_k - iso_r) > ISO_COUNT_REL * iso_r:
+        raise AssertionError(f"iso crossings {iso_k} vs twin {iso_r}")
+    return out, (grid_host, center, scale)
+
+
+def phase_density(torch, dev, g256, g512) -> tuple:
+    """15a: the kernel against its twin on a synthetic shell of 20k
+    Gaussians at 128, on phase 5's filtered Gaussians at 256 (the main
+    path's input; its field lies wholly above or below the level on most
+    planes) and on phase 11's trained-statistics 512^2 Gaussians at 256 (a
+    foam of small blobs: a surface on every plane).  Returns the records
+    and the trained Gaussians' density field for 15b."""
+    cases = [density_case(torch, dev, shell_gaussians(20_000, 7), 128,
+                          "shell 20k, 128")[0],
+             density_case(torch, dev, g256, RES, f"phase 5 asset, {RES}",
+                          twin_stride=TWIN_SLAB_STRIDE_256)[0]]
+    trained, field = density_case(
+        torch, dev, g512, RES, f"{RES_512}^2 trained statistics, {RES}",
+        twin_stride=TWIN_SLAB_STRIDE_256)
+    torch.cuda.empty_cache()
+    return cases + [trained], field
+
+
+def point_triangle_distance(torch, p, a, b, c):
+    """Distance from points p to triangles (a, b, c), all [..., 3]: the
+    projection onto the plane where it falls inside the triangle, else the
+    nearest of the three edges (the closest point of a triangle lies in
+    its interior or on its boundary)."""
+    def seg(p, u, v):
+        d = v - u
+        t = ((p - u) * d).sum(-1) / (d * d).sum(-1).clamp_min(1e-30)
+        return (p - u - t.clamp(0, 1)[..., None] * d).norm(dim=-1)
+
+    n = torch.cross(b - a, c - a, dim=-1)
+    nn2 = (n * n).sum(-1)
+    h = ((p - a) * n).sum(-1) / nn2.clamp_min(1e-30)
+    q = p - h[..., None] * n
+    inside = nn2 > 1e-30
+    for u, v in ((a, b), (b, c), (c, a)):
+        inside &= (torch.cross(v - u, q - u, dim=-1) * n).sum(-1) >= 0
+    edges = torch.minimum(torch.minimum(seg(p, a, b), seg(p, b, c)),
+                          seg(p, c, a))
+    return torch.where(inside, (h.abs() * nn2.sqrt()), edges)
+
+
+def mesh_hausdorff(torch, dev, mesh_a, mesh_b, k: int = 64,
+                   chunk: int = 2048) -> float:
+    """Symmetric Hausdorff distance between two triangle meshes, sampled at
+    their vertices: the largest distance from a vertex of one to the
+    surface of the other, on the card.  Each vertex is measured against
+    the triangles of the other mesh around its nearest vertex there and
+    the k whose centroids are nearest; a closer triangle outside them
+    would only make the value larger (the check stays conservative)."""
+    def one_way(verts, other):
+        ov, ot = (torch.from_numpy(x).to(dev) for x in other)
+        ot = ot.long()
+        tri = ov[ot]                                          # [F, 3, 3]
+        cen = tri.mean(1)
+        # the triangles around each vertex, padded with -1
+        flat = ot.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        deg = torch.bincount(flat, minlength=len(ov))
+        start = torch.cumsum(deg, 0) - deg
+        slot = torch.arange(len(flat), device=dev) - start[flat[order]]
+        around = torch.full((len(ov), int(deg.max())), -1, device=dev,
+                            dtype=torch.long)
+        around[flat[order], slot] = order // 3
+        p_all = torch.from_numpy(verts).to(dev)
+        worst = 0.0
+        for i in range(0, len(p_all), chunk):
+            p = p_all[i:i + chunk]
+            nearest_v = torch.cdist(p, ov).argmin(1)
+            cand = torch.cat([around[nearest_v], torch.cdist(p, cen).topk(
+                k, largest=False).indices], 1)
+            t = tri[cand.clamp_min(0)]                        # [P, c, 3, 3]
+            d = point_triangle_distance(torch, p[:, None], t[..., 0, :],
+                                        t[..., 1, :], t[..., 2, :])
+            d = torch.where(cand >= 0, d, float("inf"))
+            worst = max(worst, float(d.amin(1).max()))
+        return worst
+    return max(one_way(mesh_a[0], mesh_b), one_way(mesh_b[0], mesh_a))
+
+
+def mesh_record(label: str, n_gaussians: int, verts, tris, split: dict,
+                obj_dir: str) -> dict:
+    """A mesh's size and host split (extract_mesh's steps, then its OBJ,
+    written here)."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops import mesh
+    t0 = time.perf_counter()
+    path = os.path.join(obj_dir, re.sub(r"\W", "_", label) + ".obj")
+    mesh.save_mesh_obj(path, verts, tris)
+    split = dict(split, obj=time.perf_counter() - t0)
+    if not (len(tris) > 0 and np.isfinite(verts).all()):
+        raise AssertionError(f"mesh of {label}: {len(tris)} tris")
+    return {"view": label, "gaussians": n_gaussians,
+            "seconds": sum(split.values()), "stages_s": split,
+            "verts": len(verts), "tris": len(tris),
+            "obj_bytes": os.path.getsize(path), "card": card_line()}
+
+
+def phase_mesh_export(torch, dev, system, g512, field512,
+                      density512_s: float) -> dict:
+    """15b: the ball's mesh at 256 (tests/test_mesh.py's bars; the
+    kernel's grid against the twin's); phase 5's input through
+    pipe.batch(extract_mesh=True) with phase 5's system (parked on the
+    host since phase 7), with extract_mesh's host split; and phase 11's
+    trained-statistics 512^2 Gaussians (not sampled again), meshed by
+    mesh_from_grid from 15a's density field of them (extract_mesh's
+    second step; its density seconds are 15a's)."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops import mesh
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    t0 = time.perf_counter()
+    args, rows, center, scale = density_args(torch, dev, ball_gaussians(),
+                                             BALL_RES)
+    grids = {"kernel": mesh.density_grid(*args, slab_rows=rows),
+             "twin": mesh.density_grid_ref(*args,
+                                           chunk_pairs=TWIN_CHUNK_PAIRS)}
+    grids = {k: v.cpu().numpy() for k, v in grids.items()}
+    voxel = 2.0 / (BALL_RES - 1) / scale          # world units
+    meshes = {k: mesh.mesh_from_grid(v, center, scale, density_thresh=0.05)
+              for k, v in grids.items()}
+    (kv, kt), (tv, _) = meshes["kernel"], meshes["twin"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ball.obj")
+        mesh.save_mesh_obj(path, kv, kt)
+        with open(path) as f:
+            head = f.readline()
+        ball = {"verts": len(kv), "tris": len(kt), "verts_twin": len(tv),
+                "max_radius": float(np.linalg.norm(kv, axis=1).max()),
+                "hausdorff": mesh_hausdorff(torch, dev, meshes["kernel"],
+                                            meshes["twin"]),
+                "voxel": float(voxel), "seconds": time.perf_counter() - t0}
+        print(f"[15b mesh, ball] {json.dumps(ball)}", flush=True)
+        if not (len(kv) > 50 and len(kt) > 50 and ball["max_radius"] < 0.6
+                and head.startswith("v ")):
+            raise AssertionError(f"ball mesh fails tests/test_mesh.py's "
+                                 f"bars: {ball}")
+        if (abs(len(kv) - len(tv)) > MESH_VERTS_REL * len(tv)
+                or ball["hausdorff"] > voxel):
+            raise AssertionError(f"kernel vs twin grid meshes: {ball}")
+
+        t0 = time.perf_counter()
+        system.model.to(dev)
+        torch.cuda.synchronize()
+        unpark_s = time.perf_counter() - t0
+        stages = {}
+        mesh.LAUNCHES = 0
+        with GcClock() as gc_clock:
+            t0 = time.perf_counter()
+            out = DiffusionGSPipeline(system).batch(
+                [IMAGE], resolution=RES, n_views=N_VIEWS, matting="border",
+                extract_mesh=True, stage_seconds=stages)[0]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = mesh.LAUNCHES
+        system.model.to("cpu")
+        torch.cuda.empty_cache()
+        if launches != 1 or out.mesh is None:
+            raise AssertionError(f"pipe.batch(extract_mesh=True): "
+                                 f"{launches} density launches")
+        asset = mesh_record(f"{RES}^2 asset", int(out.gaussians.xyz.shape[0]),
+                            *out.mesh, out.mesh_seconds, tmp)
+        asset.update(batch_seconds=secs, batch_stages_s=stages,
+                     gc_seconds=gc_clock.seconds, launches=launches,
+                     unpark_s=unpark_s)
+        print(f"[15b mesh, {RES}^2 asset] {json.dumps(asset)}", flush=True)
+        split = {"density": density512_s}
+        verts, tris = mesh.mesh_from_grid(*field512, stage_seconds=split)
+        trained = mesh_record(f"{RES_512}^2 trained statistics",
+                              int(g512.xyz.shape[0]), verts, tris, split, tmp)
+        print(f"[15b mesh, {RES_512}^2 trained statistics] "
+              f"{json.dumps(trained)}", flush=True)
+    return {"ball": ball, "asset": asset, "trained_512": trained}
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return 10.0 * float(np.log10(1.0 / mse)) if mse > 0 else float("inf")
+
+
+def phase_int8(torch, dev, bf16_renders) -> dict:
+    """15c: one 256^2 asset with quant_int8 (phase 5's weights and seed),
+    timed by the host clock while torch.profiler traces the card's
+    kernels (CUDA activity only, so the device ms are the same call's),
+    its int8 products counted (sample_asset's gate: 24 x 4 x 30), its
+    renders against phase 5's; then QuantLinear against the bf16 Linear
+    at the DiT's shapes, each beside its bound."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.models.transformer import Linear
+    from open_diffusiongs_tpu_torch.ops import quant
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    system = build_system(torch, dev, overrides=(QUANT,))
+    blk = system.model.transformer[0]
+    if not all(isinstance(m, quant.QuantLinear) for m in
+               (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)):
+        raise AssertionError("quant_int8 did not build QuantLinears")
+    keep, got = [], []
+    pipe = DiffusionGSPipeline(system)
+    # no warm-up: every kernel and shape but _int_mm's was made by phase 5
+    device_ms = sum(device_ms_by_kernel(
+        torch, lambda: got.append(sample_asset(
+            torch, dev, pipe, RES, "15c W8A8 256^2 asset", profiled=False,
+            warm_up=False, keep=keep)),
+        iters=1, warm_up=False).values())
+    asset, renders = got[0], keep[0].renders
+    del system, pipe, keep
+    torch.cuda.empty_cache()
+    if np.array_equal(renders, bf16_renders):
+        raise AssertionError("W8A8 renders equal the bf16 ones: the int8 "
+                             "path did not run")
+    out = {"seconds_per_asset": asset["seconds_per_asset"],
+           "device_ms_per_asset": device_ms,
+           "traced_by": "torch.profiler, CUDA activity",
+           "stages_s": asset["stages_s"],
+           "int8_mm_launches": asset["launches"]["int8_mm"],
+           "psnr_vs_bf16_db": psnr(renders, bf16_renders),
+           "jax_tpu_f32_reference_psnr_db": JAX_INT8_PSNR_DB, "gemms": []}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for m in (4098, 16386):
+        for k, n in QUANT_SHAPES:
+            x = torch.randn((1, m, k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            ql = quant.QuantLinear(k, n, compute_dtype=torch.bfloat16
+                                   ).to(dev)
+            bl = Linear(k, n, compute_dtype=torch.bfloat16).to(dev)
+            bl.load_state_dict(ql.state_dict())
+            with torch.no_grad():
+                int8_ms = cuda_ms(lambda: ql(x), iters=20)
+                bf16_ms = cuda_ms(lambda: bl(x), iters=20)
+            ops = 2 * m * k * n
+            out["gemms"].append({
+                "m": m, "k": k, "n": n, "int8_ms": int8_ms,
+                "bf16_ms": bf16_ms,
+                # x and y in bf16; the f32 master weight and bias
+                "int8_bound_ms": 1e3 * max(
+                    ops / INT8_PEAK, (2 * m * k + 4 * n * k + 4 * n
+                                      + 2 * m * n) / HBM_BYTES_PER_S),
+                "bf16_bound_ms": 1e3 * max(
+                    ops / PEAK_OPS["bf16"], (2 * m * k + 4 * n * k + 4 * n
+                                             + 2 * m * n) / HBM_BYTES_PER_S)})
+            del x, ql, bl
+    out["card"] = card_line()
+    print(f"[15c W8A8] {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_u2net_cli(torch, dev) -> dict:
+    """15d: U²-Net (synthetic weights of the full u2net spec, written as
+    the converter's NPZ into a temporary directory): u2net_alpha at 320^2
+    timed, the card's d0 against the same module on the CPU; then
+    run.main(["--matting", "u2net", "--extract-mesh", ...]) with
+    U2NET_NPZ set: PLY, renders and a non-empty mesh.obj."""
+    import numpy as np
+    from PIL import Image
+
+    from open_diffusiongs_tpu_torch import run
+    from open_diffusiongs_tpu_torch.ops import mesh
+    from open_diffusiongs_tpu_torch.utils import u2net
+    params = u2net.synth_params(u2net.U2NET_FULL)
+    net = u2net.U2Net(params, u2net.U2NET_FULL).to(dev)
+    rgb = np.asarray(Image.open(IMAGE).convert("RGB"))
+    alpha_ms = cuda_ms(lambda: u2net.u2net_alpha(net, rgb), iters=5)
+    x = torch.randn((1, 3, U2NET_SIZE, U2NET_SIZE),
+                    generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: net(x.to(dev)), iters=5)
+        d0 = net(x.to(dev))[0].cpu()
+        d0_cpu = u2net.U2Net(params, u2net.U2NET_FULL)(x)[0]
+    err = (d0 - d0_cpu).abs()
+    out = {"alpha_ms": alpha_ms, "forward_ms": fwd_ms,
+           "d0_max_err": float(err.max()), "d0_mean_err": float(err.mean())}
+    if not (out["d0_max_err"] < U2NET_MAX_ERR
+            and out["d0_mean_err"] < U2NET_MEAN_ERR):
+        raise AssertionError(f"U²-Net card vs CPU: {out}")
+    del net
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "u2net.npz")
+        np.savez(npz, **params)
+        dest = os.path.join(tmp, "out")
+        prev = os.environ.get("U2NET_NPZ")
+        os.environ["U2NET_NPZ"] = npz
+        mesh.LAUNCHES = 0
+        try:
+            t0 = time.perf_counter()
+            run.main(["--image", IMAGE, "--matting", "u2net",
+                      "--extract-mesh", "--out", dest])
+            torch.cuda.synchronize()
+            out["cli_seconds"] = time.perf_counter() - t0
+        finally:
+            if prev is None:
+                os.environ.pop("U2NET_NPZ")
+            else:
+                os.environ["U2NET_NPZ"] = prev
+        out["cli_density_launches"] = mesh.LAUNCHES
+        files = sorted(os.listdir(dest))
+        out["cli_files"] = files
+        out["mesh_obj_bytes"] = os.path.getsize(os.path.join(dest,
+                                                             "mesh.obj"))
+    out["card"] = card_line()
+    print(f"[15d u2net + CLI] {json.dumps(out)}", flush=True)
+    want = {"gaussians.ply", "input_processed.png", "mesh.obj"} | {
+        f"render_{i}.png" for i in range(N_VIEWS)}
+    if not (want <= set(files) and out["mesh_obj_bytes"] > 0
+            and out["cli_density_launches"] == 1):
+        raise AssertionError(f"run --matting u2net --extract-mesh: {out}")
+    return out
+
+
+def phase_serving(torch, dev, system, g256, bf16_renders, g512) -> dict:
+    """15: a-d, each part's host seconds."""
+    seconds = {}
+    out = {}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(torch, dev, *args)
+        seconds[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out[key]
+
+    out["density"], field512 = part("density", phase_density, g256, g512)
+    part("mesh", phase_mesh_export, system, g512, field512,
+         out["density"][2]["density_s"])
+    part("int8", phase_int8, bf16_renders)
+    part("u2net_cli", phase_u2net_cli)
+    out["seconds"] = seconds
+    print(f"[15 serving surface] {json.dumps(seconds)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2237,11 +2756,15 @@ def main() -> int:
     attn = timed("3 attention", phase_attention, torch, dev)
     system = timed("system", build_system, torch, dev)
     blend, views = timed("4 blend", phase_blend, torch, dev, system)
-    main_res = timed("5 main path", phase_main, torch, dev, system)
+    kept_256 = []       # phase 5's timed asset, for phase 15
+    main_res = timed("5 main path", phase_main, torch, dev, system, kept_256)
     attn_train = timed("6 attention training", phase_attention_train,
                        torch, dev)
     blend_bwd = timed("7 blend backward", phase_blend_bwd, torch, dev, views)
-    del system, views
+    del views
+    # phase 15b samples with this system again: parked on the host until
+    # then, off the peaks of phases 8-14
+    system.model.to("cpu")
     torch.cuda.empty_cache()
     train = timed("8 train path", phase_train, torch, dev)
     torch.cuda.empty_cache()
@@ -2261,8 +2784,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         load, pipe, pretrained, spot = timed("10 load", phase_load, torch,
                                              dev, tmp)
+        kept_512 = []   # phase 11's trained-statistics asset, for 15a-b
         sample_512 = timed("11 512^2 sampling", phase_sample_512, torch, dev,
-                           pipe, pretrained)
+                           pipe, pretrained, kept_512)
         del pipe
         torch.cuda.empty_cache()
         train_512 = timed("12 512^2 train step", phase_train_512, torch, dev,
@@ -2275,6 +2799,11 @@ def main() -> int:
                              dev, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         scene_eval = timed("14 scene eval", phase_scene_eval, torch, dev, tmp)
+    torch.cuda.empty_cache()
+    serving = timed("15 serving surface", phase_serving, torch, dev, system,
+                    kept_256[0].gaussians, kept_256[0].renders,
+                    kept_512[0].gaussians)
+    del system, kept_256, kept_512
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
     print("[host split] " + json.dumps({
         f"{RES}^2": main_res["host_split"],
@@ -2296,6 +2825,7 @@ def main() -> int:
                 "launches_scene_eval": scene_eval["launches"][counter]}
 
     src = "open_diffusiongs_tpu_torch/csrc/"
+    density = serving["density"][1]     # phase 5's asset at 256
     kernels = [
         {"name": "flash_mha_packed", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
@@ -2370,6 +2900,21 @@ def main() -> int:
          "ms": bench["sweep"]["mha_full"]["ms"],
          "plain_ms": bench["plain_ms"], **roof(bench),
          "library_ms": bench["sdpa_ms"]},
+        {"name": "density_grid", "route": "cuda",
+         "source": src + "density_grid.cu",
+         "replaces": "open_diffusiongs_tpu/ops/mesh.py:312 (eval_block, "
+                     "an XLA fusion; no Pallas counterpart)",
+         "launches": serving["mesh"]["asset"]["launches"],
+         "max_abs_err": max(c["max_abs_err"] for c in serving["density"]),
+         "ms": density["ms"], "plain_ms": density["plain_ms"],
+         **roof(density), "library_ms": None,
+         # the twin runs on every 8th slab: its pairs, and the kernel's
+         # time on the same slabs, beside the whole grid's
+         "pairs": density["pairs"], "plain_pairs": density["twin_pairs"],
+         "ms_on_plain_slabs": density["ms_on_twin_slabs"],
+         "ms_shell_128": serving["density"][0]["ms"],
+         "ms_trained_512": serving["density"][2]["ms"],
+         "launches_cli": serving["u2net_cli"]["cli_density_launches"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -84,7 +84,8 @@ class DGSDenoiser(nn.Module):
                  range_setting_far: float = 500.0, dtype=torch.float32,
                  gs_raw_offset_scaling: float = 0.0,
                  gs_raw_offset_opacity: float = 0.0,
-                 checkpoint: bool = False, attn_impl: str = "auto"):
+                 checkpoint: bool = False, attn_impl: str = "auto",
+                 quant_int8: bool = False):
         super().__init__()
         if ray_pe_type not in ("relative_plk", "plk"):
             raise ValueError(f"unknown ray_pe_type {ray_pe_type}")
@@ -102,6 +103,9 @@ class DGSDenoiser(nn.Module):
         # random-weights model's population at trained statistics (bench)
         self.gs_raw_offset_scaling = gs_raw_offset_scaling
         self.gs_raw_offset_opacity = gs_raw_offset_opacity
+        # serving-mode W8A8 projections in the DiT (ops/quant.py; JAX
+        # denoiser.py:95-127): the parameters are the float model's
+        self.quant_int8 = quant_int8
         gs_ch = gs_channels(gaussians_sh_degree)
 
         self.image_tokenizer = nn.Sequential(
@@ -120,7 +124,8 @@ class DGSDenoiser(nn.Module):
         # the general route (models/transformer.py)
         self.transformer = DiTStack(width, width // dim_heads, num_layers,
                                     dtype=dtype, checkpoint=checkpoint,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl,
+                                    quant_int8=quant_int8)
         self.upsampler = AdaLNHead(width, gs_ch, dtype=dtype)
         self.image_token_decoder = AdaLNHead(width, patch_size ** 2 * gs_ch,
                                              dtype=dtype)
@@ -143,15 +148,22 @@ class DGSDenoiser(nn.Module):
                               -2.0 * std, 2.0 * std, generator=generator)
 
     def forward(self, images: torch.Tensor, ray_o: torch.Tensor,
-                ray_d: torch.Tensor, t: torch.Tensor):
+                ray_d: torch.Tensor, t: torch.Tensor,
+                training: bool = False):
         """images [b, v, 3, h, w] in [0, 1] (view 0 = clean condition);
         ray_o / ray_d [b, v, 3, h, w] world rays (unit ray_d); t [b].
+        `training` only refuses `quant_int8` (JAX denoiser.py:168): like
+        the reference, the systems never pass it.
 
         Returns (Gaussians with N = n_gaussians + v*h*w, per-pixel
         depth-xyz [b, v, 3, h, w])."""
         b, v, _, h, w = images.shape
         p = self.patch_size
         n = self.n_gaussians
+        if training and self.quant_int8:
+            # int8 rounding has zero gradient almost everywhere
+            raise ValueError("quant_int8 is a serving-mode knob; disable "
+                             "it for training (shape_model.quant_int8)")
         if self.ray_pe_type == "relative_plk":
             o_dot_d = torch.sum(-ray_o * ray_d, dim=2, keepdim=True)
             posed = torch.cat([images[:, :, :3] * 2.0 - 1.0, ray_d,

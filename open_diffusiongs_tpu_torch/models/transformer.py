@@ -33,9 +33,13 @@ not need the TPU's lane test; it is kept so that one config computes one
 function in both packages: the two routes round the q pre-scale
 differently.
 
+W8A8 serving (`quant_int8`, transformer.py:352-361, :413-418, :455-476):
+q/k/v/proj and fc1/fc2 of every block become ops/quant.py::QuantLinear;
+adaLN_modulation stays full precision, as in JAX.
+
 Left out of this port (ROADMAP Queue 1): splash (a JAX library kernel; it
 also carries JAX's training through the general route, which the port's
-card path refuses), ring / pipeline / tensor-parallel meshes and W8A8.
+card path refuses) and ring / pipeline / tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import flash_attention, flash_full_mha
+from ..ops.quant import QuantLinear
 
 ATTN_IMPLS = ("auto", "flash", "splash", "xla")
 
@@ -203,21 +208,30 @@ class Attention(nn.Module):
     per-head q/k RMSNorm when `qk_norm`, and runs `fused_attention`.  The
     lane test is the TPU's, not the GPU's: it is kept because the two
     routes round the q pre-scale differently, and one config must compute
-    one function in both packages."""
+    one function in both packages.
+
+    With `quant_int8` the fused qkv and proj are QuantLinears.  The fused
+    [3d, d] qkv weight quantizes to the same per-row scales as JAX's
+    separate q / k / v QuantDenses (a row is one output channel of one of
+    them) and to the same per-token activation scales (all three read the
+    same input), so its output is theirs, concatenated
+    (tests/test_torch_quant.py holds this bit for bit in f32)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
-                 attn_impl: str = "auto", qk_norm: bool = False):
+                 attn_impl: str = "auto", qk_norm: bool = False,
+                 quant_int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = resolve_attn_impl(attn_impl)
         self.packed = (self.attn_impl == "flash"
                        and takes_packed(dim, num_heads, qk_norm))
-        self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        dense = QuantLinear if quant_int8 else Linear
+        self.qkv = dense(dim, 3 * dim, compute_dtype=dtype)
         if qk_norm:
             self.q_norm = RMSNorm(dim // num_heads)
             self.k_norm = RMSNorm(dim // num_heads)
         self.qk_norm = qk_norm
-        self.proj = Linear(dim, dim, compute_dtype=dtype)
+        self.proj = dense(dim, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, d = x.shape
@@ -234,26 +248,32 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, mlp_ratio: float = 4.0, dtype=torch.float32):
+    def __init__(self, dim: int, mlp_ratio: float = 4.0, dtype=torch.float32,
+                 quant_int8: bool = False):
         super().__init__()
         hidden = int(dim * mlp_ratio)
-        self.fc1 = Linear(dim, hidden, compute_dtype=dtype)
-        self.fc2 = Linear(hidden, dim, compute_dtype=dtype)
+        dense = QuantLinear if quant_int8 else Linear
+        self.fc1 = dense(dim, hidden, compute_dtype=dtype)
+        self.fc2 = dense(hidden, dim, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
 class DiTBlock(nn.Module):
-    """adaLN DiT block (utils_transformer.py:246-290)."""
+    """adaLN DiT block (utils_transformer.py:246-290); `quant_int8`
+    quantizes the attention and MLP projections, not adaLN_modulation."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
-                 attn_impl: str = "auto", qk_norm: bool = False):
+                 attn_impl: str = "auto", qk_norm: bool = False,
+                 quant_int8: bool = False):
         super().__init__()
         self.attn = Attention(hidden_size, num_heads, dtype=dtype,
-                              attn_impl=attn_impl, qk_norm=qk_norm)
-        self.mlp = Mlp(hidden_size, mlp_ratio, dtype=dtype)
+                              attn_impl=attn_impl, qk_norm=qk_norm,
+                              quant_int8=quant_int8)
+        self.mlp = Mlp(hidden_size, mlp_ratio, dtype=dtype,
+                       quant_int8=quant_int8)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size,
                               compute_dtype=dtype))
@@ -274,13 +294,16 @@ class DiTStack(nn.ModuleList):
     attention kernel masks its ragged tile itself, so no padding.
     `checkpoint`: recompute each block in the backward instead of keeping
     its activations (only while grad mode is on).  Like JAX's stack it
-    takes `attn_impl` and no `qk_norm` (transformer.py:480-609)."""
+    takes `attn_impl`, `quant_int8` and no `qk_norm`
+    (transformer.py:480-609)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
-                 checkpoint: bool = False, attn_impl: str = "auto"):
+                 checkpoint: bool = False, attn_impl: str = "auto",
+                 quant_int8: bool = False):
         super().__init__(DiTBlock(hidden_size, num_heads, mlp_ratio,
-                                  dtype=dtype, attn_impl=attn_impl)
+                                  dtype=dtype, attn_impl=attn_impl,
+                                  quant_int8=quant_int8)
                          for _ in range(num_layers))
         self.checkpoint = checkpoint
 

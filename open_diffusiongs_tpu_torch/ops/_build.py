@@ -14,7 +14,8 @@ Nothing is built at import time: the first wrapper that launches a kernel
 on a CUDA tensor calls `load_library()`.
 
 No `--use_fast_math`: the blend's `expf` must stay IEEE-accurate to hold the
-rasterizer's 2e-5 parity bar.
+rasterizer's 2e-5 parity bar, and the density field's (density_grid.cu) its
+1e-5 one.
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ SIGNATURES = {
     # packed, idx, counts, n_end (or None), num_tiles, k, tiles_x, t_fin,
     # acc_c, acc_d, d_tfin, d_accc, d_accd, dg, stream
     "odgs_blend_bwd": [_P] * 4 + [_I] * 3 + [_P] * 8,
+    # lin, slab_z, idx, counts, xyz, inv, opa, grid, res, n_slabs,
+    # max_per_block, slab_rows, stream
+    "odgs_density_grid": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

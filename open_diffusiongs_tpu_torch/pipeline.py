@@ -3,7 +3,8 @@
 Counterpart of open_diffusiongs_tpu/pipeline.py:63-294: preprocess the
 input image (background removal, foreground-ratio recentring, white pad),
 build the 4-view camera template, run the 30-step sampler, filter the
-Gaussians and export PLY.  `from_pretrained` (JAX :160-193) loads a
+Gaussians and export PLY and, on request, a mesh (ops/mesh.py, whose
+density field is a CUDA kernel).  `from_pretrained` (JAX :160-193) loads a
 pretrained directory (config.yaml + ckpts/, made from reference weights by
 the port's tools/make_pretrained_dir.py); the constructor wraps a system
 whose model the caller initialized or loaded.
@@ -33,21 +34,55 @@ class GSPipelineOutput:
     renders: np.ndarray          # [v, 3, h, w]
     input_image: np.ndarray      # [3, h, w] preprocessed condition
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (verts, tris)
+    # host seconds of the mesh export's steps (ops/mesh.py::extract_mesh)
+    mesh_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
-def remove_background(img: np.ndarray, matting: str = "u2net") -> np.ndarray:
-    """[h, w, 3] uint8 -> alpha [h, w] in [0, 1], by an explicit method:
-      * "u2net": the reference's learned model — its weights are not in
-        the repository, so this raises, as the JAX pipeline does without
-        its converted weights;
+_U2NET_CACHE: dict = {}
+
+
+def _u2net_net(device):
+    """The converted U²-Net weights at $U2NET_NPZ (default
+    ~/.cache/open_diffusiongs_tpu/u2net.npz) as a module on `device`,
+    cached; None when no NPZ is there.  $U2NET_SPEC selects the variant
+    ("u2net", the default, or "u2netp") (JAX pipeline.py:48-61)."""
+    from .utils import u2net
+    spec_name = os.environ.get("U2NET_SPEC", "u2net")
+    path = u2net.default_weights_path()
+    key = (path, spec_name, str(device))
+    if key not in _U2NET_CACHE:
+        _U2NET_CACHE[key] = (
+            u2net.U2Net(u2net.load_params(path, u2net.SPECS[spec_name]),
+                        u2net.SPECS[spec_name]).to(device)
+            if os.path.exists(path) else None)
+    return _U2NET_CACHE[key]
+
+
+def remove_background(img: np.ndarray, matting: str = "u2net",
+                      device=None) -> np.ndarray:
+    """[h, w, 3] uint8 -> alpha [h, w] in [0, 1], by an explicit method
+    (JAX pipeline.py:64-107):
+      * "u2net": the reference's learned model (utils/u2net.py), from a
+        converted weights NPZ at $U2NET_NPZ (tools/convert_u2net_weights.py
+        writes one), run on `device` (the GPU, raising without one, unless
+        it names another); raises when no NPZ is there;
       * "grabcut": from-scratch GrabCut (utils/matting.py, the port's copy
         of the JAX package's module, + native/matting.cpp);
       * "border": the median-border-colour heuristic (studio shots)."""
     if matting == "u2net":
-        raise RuntimeError(
-            "matting='u2net' needs the U²-Net weights, which this port does "
-            "not have; pass matting='grabcut' or 'border' to acknowledge the "
-            "fallback")
+        from . import select_device
+        from .utils import u2net
+        net = _u2net_net(select_device(device))
+        if net is None:
+            raise RuntimeError(
+                "Background removal is configured for U²-Net (the "
+                "reference's rembg model) but no converted weights NPZ "
+                "exists at $U2NET_NPZ / the default cache path. Convert "
+                "one with tools/convert_u2net_weights.py, or explicitly "
+                "acknowledge the degraded fallback with matting='grabcut' "
+                "(or 'border').")
+        return u2net.u2net_alpha(net, img)
     if matting == "grabcut":
         from .utils import matting as matting_lib
         if not matting_lib.available():
@@ -66,16 +101,17 @@ def remove_background(img: np.ndarray, matting: str = "u2net") -> np.ndarray:
 
 
 def preprocess_image(image: Image.Image, foreground_ratio: float = 0.85,
-                     size: int = 512, matting: str = "u2net") -> np.ndarray:
-    """Background removal + recentre to foreground_ratio + white pad square
-    (pipline_obj.py preprocess_image:97-167).  Returns [3, size, size] f32
-    in [0, 1]."""
+                     size: int = 512, matting: str = "u2net",
+                     device=None) -> np.ndarray:
+    """Background removal (on `device` for u2net) + recentre to
+    foreground_ratio + white pad square (pipline_obj.py
+    preprocess_image:97-167).  Returns [3, size, size] f32 in [0, 1]."""
     rgba = np.asarray(image.convert("RGBA"), np.uint8)
     rgb = rgba[..., :3]
     if (rgba[..., 3] < 250).any():
         alpha = rgba[..., 3].astype(np.float32) / 255.0
     else:
-        alpha = remove_background(rgb, matting=matting)
+        alpha = remove_background(rgb, matting=matting, device=device)
     mask = alpha > 0.5
     if not mask.any():
         mask = np.ones_like(alpha, dtype=bool)
@@ -142,6 +178,7 @@ class DiffusionGSPipeline:
 
     def __call__(self, image, seed: int = 0, foreground_ratio: float = 0.85,
                  resolution: int = 256, n_views: int = 4,
+                 extract_mesh: bool = False, mesh_resolution: int = 256,
                  opacity_thres: float = 0.02,
                  crop_bbx: Tuple[float, ...] = (-0.91, 0.91) * 3,
                  save_ply: Optional[str] = None,
@@ -150,20 +187,26 @@ class DiffusionGSPipeline:
         return self.batch(
             [image], seed=seed, foreground_ratio=foreground_ratio,
             resolution=resolution, n_views=n_views,
+            extract_mesh=extract_mesh, mesh_resolution=mesh_resolution,
             opacity_thres=opacity_thres, crop_bbx=crop_bbx,
             save_ply=[save_ply] if save_ply else None, matting=matting)[0]
 
     def batch(self, images, seed: int = 0, foreground_ratio: float = 0.85,
               resolution: int = 256, n_views: int = 4,
+              extract_mesh: bool = False, mesh_resolution: int = 256,
               opacity_thres: float = 0.02,
               crop_bbx: Tuple[float, ...] = (-0.91, 0.91) * 3,
               save_ply=None, matting: str = "u2net",
               stage_seconds: Optional[Dict[str, float]] = None) -> list:
         """Images (paths, PIL images or [3, h, w] arrays) -> one
-        GSPipelineOutput each, sampled together as one batch.  `save_ply`:
-        optional per-image output paths (None entries skip).
-        `stage_seconds`: a dict that receives each stage's host seconds
-        (preprocess, camera_template, sampler, transfer, filters, ply),
+        GSPipelineOutput each, sampled together as one batch.  With
+        `extract_mesh` each image's filtered Gaussians are meshed as JAX
+        meshes them (ops/mesh.py::extract_mesh at `mesh_resolution`, the
+        density field on the system's device; each output's
+        `mesh_seconds` splits its host time by step).  `save_ply`: optional
+        per-image output paths (None entries skip).  `stage_seconds`: a
+        dict that receives each stage's host seconds (preprocess,
+        camera_template, sampler, transfer, filters, mesh when asked, ply),
         each edge synchronized with the device."""
         dev = self.system.device
         clock = StageClock(stage_seconds, dev)
@@ -173,7 +216,7 @@ class DiffusionGSPipeline:
                 image = Image.open(image)
             if isinstance(image, Image.Image):
                 cond = preprocess_image(image, foreground_ratio, resolution,
-                                        matting=matting)
+                                        matting=matting, device=dev)
             else:
                 cond = np.asarray(image, np.float32)
             conds.append(cond)
@@ -201,12 +244,18 @@ class DiffusionGSPipeline:
             g = g.apply_all_filters(opacity_thres=opacity_thres,
                                     crop_bbx=crop_bbx)
             clock.stage("filters")
+            mesh, mesh_seconds = None, {}
+            if extract_mesh:
+                from .ops.mesh import extract_mesh as _extract
+                mesh = _extract(g, resolution=mesh_resolution, device=dev,
+                                stage_seconds=mesh_seconds)
+                clock.stage("mesh")
             if save_ply and save_ply[i]:
                 save_gaussians_ply(g, save_ply[i])
             clock.stage("ply")
             results.append(GSPipelineOutput(
                 gaussians=g, renders=renders_all[i], input_image=conds[i],
-                stats=stats))
+                stats=stats, mesh=mesh, mesh_seconds=mesh_seconds))
         return results
 
 

@@ -1,7 +1,12 @@
 """Single image -> 3D Gaussians on the GPU (the port of run.py).
 
   python -m open_diffusiongs_tpu_torch.run --ckpt <dir with config.yaml +
-      ckpts/> --image input.png --matting border --out output/
+      ckpts/> --image input.png --matting border --extract-mesh --out output/
+
+Writes gaussians.ply, input_processed.png, render_<i>.png and, with
+`--extract-mesh`, mesh.obj.  `--matting u2net` (the default, as in JAX)
+reads converted U²-Net weights from $U2NET_NPZ (and the variant from
+$U2NET_SPEC) and raises without them.
 
 `--ckpt` takes a pretrained directory (the port's
 tools/make_pretrained_dir.py makes one from a reference checkpoint or its
@@ -37,11 +42,14 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=62)
     p.add_argument("--foreground-ratio", type=float, default=0.825)
     p.add_argument("--resolution", type=int, default=256)
+    p.add_argument("--extract-mesh", action="store_true",
+                   help="also write mesh.obj (density field on the device, "
+                        "native iso-surface and clean-up)")
     p.add_argument("--matting", default="u2net",
                    choices=["u2net", "grabcut", "border"],
-                   help="background removal; u2net needs weights the port "
-                        "does not have — pass grabcut/border to acknowledge "
-                        "the fallback")
+                   help="background removal; u2net (reference parity) "
+                        "needs a converted weights NPZ at $U2NET_NPZ — pass "
+                        "grabcut/border to acknowledge the fallback")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
@@ -75,6 +83,7 @@ def main(argv=None):
     outs = pipe.batch(args.image, seed=args.seed,
                       foreground_ratio=args.foreground_ratio,
                       resolution=args.resolution, matting=args.matting,
+                      extract_mesh=args.extract_mesh,
                       save_ply=[os.path.join(d, "gaussians.ply")
                                 for d in subdirs])
 
@@ -86,6 +95,9 @@ def main(argv=None):
         save_png(os.path.join(d, "input_processed.png"), out.input_image)
         for i in range(out.renders.shape[0]):
             save_png(os.path.join(d, f"render_{i}.png"), out.renders[i])
+        if out.mesh is not None:
+            from open_diffusiongs_tpu_torch.ops.mesh import save_mesh_obj
+            save_mesh_obj(os.path.join(d, "mesh.obj"), *out.mesh)
         print(f"saved outputs to {d}/ ({out.gaussians.xyz.shape[0]} "
               f"gaussians, overflow {out.stats})")
 

@@ -39,6 +39,8 @@ _SHAPE_MODEL_MAP = {
     "gs_raw_offset_opacity": "gs_raw_offset_opacity",
     # block checkpointing (the JAX package's remat)
     "use_checkpoint": "checkpoint",
+    # W8A8 int8 serving (ops/quant.py; JAX builder.py:38-39)
+    "quant_int8": "quant_int8",
     # reference knobs with a fixed answer (unused by the shipped model)
     "prior_distribution": None, "use_gssplat": None,
     "grad_checkpoint_every": None, "use_downsample": None,
@@ -63,11 +65,6 @@ def shape_model_kwargs(cfg: Dict[str, Any], bf16: bool = True,
         if k in TPU_ONLY_SHAPE_KEYS:
             if ignored is not None:
                 ignored.append(k)
-            continue
-        if k == "quant_int8":
-            if v:
-                raise NotImplementedError(
-                    "shape_model.quant_int8 (W8A8 serving) is not ported")
             continue
         if k not in _SHAPE_MODEL_MAP:
             raise ValueError(f"unknown shape_model key {k!r}")
