@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's object-sampling path, object training step,
-the DiT's general attention route, serving from a checkpoint at 256^2
-and 512^2, and the training / evaluation CLI (object training with resume
-and export, scene eval with its metric CLI) once on one NVIDIA GPU.
+the DiT's general attention route (sampling and training), serving from a
+checkpoint at 256^2 and 512^2, and the training / evaluation CLI (object
+training with resume and export, scene eval with its metric CLI) once on
+one NVIDIA GPU.
 
   python3 chip_smoke.py
 
@@ -199,6 +200,34 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   (max 1.5e-3, mean 1e-5); then run.main with --matting
                   u2net --extract-mesh and U2NET_NPZ set: PLY, renders and
                   a non-empty mesh.obj.
+  16. general-route training
+               a. #5s (flash_full_mha_stats: flash_full_fwd.cu's STATS
+                  flag) and #5b (flash_full_mha_bwd: flash_full_bwd.cu)
+                  against their twins (run head by head) at
+                  GENERAL_TRAIN_CASES: b = 4, L = 4098, 16 heads of 64
+                  and of 48 on column slices of a fused qkv, 64 also on
+                  contiguous q / k (the qk_norm blocks' RMSNorm outputs),
+                  d 40 and 20, both halves of subset attention, shapes
+                  off the tiling; each batch element at its own scale;
+                  phase 6's bounds (o rel-max 8e-3, lse abs 1e-3, dq/dk/dv
+                  rel-max 1e-2); two backward launches bit-identical;
+                  flash_full_bwd.cu free of atomics; q~ on the card equal
+                  to bf16(q * bf16(d^-1/2)) and, at 3x scores, the
+                  kernel's o on the training twin, not on #5's serving
+                  twin; ptxas: no spills, no wgmma serialisation warnings
+                  in the STATS and backward instantiations; timed by
+                  CUDA events at d 64 and 48 beside SDPA's forward, its
+                  backward alone, the twins and the bounds, the backward
+                  split by kernel;
+               b. 24 DiTBlock(1024, 16, qk_norm=True) forward + backward
+                  at b = 4, L = 4098, bf16: exactly 24 #5s and 24 #5b
+                  launches and no other attention launch, finite, non-zero
+                  gradients;
+               c. phase 8's train step with shape_model width 768 and
+                  dim_heads 48 (16 heads of 48, all 24 layers, block
+                  checkpointing): per step 48 #5s, 24 #5b and no packed
+                  launch, plus the blends; finite losses, the EMA moves;
+                  seconds and device ms per step, peak memory.
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -1053,9 +1082,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     before = {k: params[k].detach().clone() for k in watch}
     ema_before = {k: state.ema_params[k].clone() for k in watch}
     torch.cuda.reset_peak_memory_stats(dev)
-    attention.LAUNCHES = attention.LAUNCHES_STATS = 0
-    attention.LAUNCHES_BWD = 0
-    blend_kernel.LAUNCHES = blend_kernel.LAUNCHES_BWD = 0
+    reset_launches(attention, blend_kernel)
     steps = []
     for _ in range(TRAIN_STEPS):
         with GcClock() as gc_clock:
@@ -1070,19 +1097,27 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     launches = {"attention_fwd": attention.LAUNCHES,
                 "attention_fwd_lse": attention.LAUNCHES_STATS,
                 "attention_bwd": attention.LAUNCHES_BWD,
+                "general_fwd": attention.LAUNCHES_FULL,
+                "general_fwd_lse": attention.LAUNCHES_FULL_STATS,
+                "general_bwd": attention.LAUNCHES_FULL_BWD,
                 "blend_fwd": blend_kernel.LAUNCHES,
                 "blend_bwd": blend_kernel.LAUNCHES_BWD}
-    # Per step: every DiT layer runs its attention forward twice under
-    # block checkpointing (the forward and the backward's recompute) and
-    # its backward once; the render blends (and back-propagates) each of
-    # the b x 4 supervision views once.
+    # Per step: every DiT layer runs its attention's stats forward twice
+    # under block checkpointing (the forward and the backward's recompute;
+    # once without) and its backward once, on the packed kernels (#1s,
+    # #3) or, for a layout that fails the lane test, the general route's
+    # (#5s, #5b); the render blends (and back-propagates) each of the
+    # b x 4 supervision views once.
     n_layers = len(model.transformer)
+    fwd = n_layers * (2 if model.transformer.checkpoint else 1)
+    route = ("attention" if model.transformer[0].attn.packed
+             else "general")
     views = batch_size * sup_views
-    want = {"attention_fwd": 0,
-            "attention_fwd_lse": TRAIN_STEPS * n_layers * 2,
-            "attention_bwd": TRAIN_STEPS * n_layers,
-            "blend_fwd": TRAIN_STEPS * views,
-            "blend_bwd": TRAIN_STEPS * views}
+    want = {k: 0 for k in launches}
+    want.update({f"{route}_fwd_lse": TRAIN_STEPS * fwd,
+                 f"{route}_bwd": TRAIN_STEPS * n_layers,
+                 "blend_fwd": TRAIN_STEPS * views,
+                 "blend_bwd": TRAIN_STEPS * views})
     qkv_grad_norms = [float(model.transformer[i].attn.qkv.weight.grad.norm())
                       for i in range(n_layers)]
     # image_token_decoder makes 262,144 of the 262,146 Gaussians (one per
@@ -1118,7 +1153,13 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                    blend_fwd_device_ms_per_step=kernel_ms(
                        by_kernel, "blend_fwd_kernel"),
                    blend_bwd_device_ms_per_step=kernel_ms(
-                       by_kernel, "blend_bwd_kernel"))
+                       by_kernel, "blend_bwd_kernel"),
+                   attention_fwd_device_ms_per_step=kernel_ms(
+                       by_kernel, "flash_full_kernel" if route == "general"
+                       else "flash_fwd_kernel"),
+                   attention_bwd_device_ms_per_step=kernel_ms(
+                       by_kernel, "flash_full_bwd" if route == "general"
+                       else "flash_bwd"))
     print(f"[{label}] {json.dumps(out)}", flush=True)
     if not all(torch.isfinite(torch.tensor(s["loss"])) for s in steps):
         raise AssertionError("non-finite training loss")
@@ -1425,9 +1466,15 @@ def ptxas_summary(log: str, entry: str) -> dict:
         if m:
             name = m.group(1) if entry in m.group(1) else None
             if name:
-                args = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
-                name = ("DH={} split={} score_bf16={}".format(*args.groups())
-                        if args else name)
+                args = re.search(r"ILi(\d+)ELb([01])ELb([01])E"
+                                 r"(?:Lb([01])E)?", name)
+                kern = re.search(r"([a-z_]+_kernel)ILi(\d+)E", name)
+                if args:
+                    name = "DH={} split={} score_bf16={}".format(
+                        *args.groups()[:3])
+                    name += " stats=1" if args.group(4) == "1" else ""
+                elif kern:
+                    name = "{} DH={}".format(*kern.groups())
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1843,6 +1890,286 @@ def phase_odd_shapes(torch, dev) -> dict:
     return res
 
 
+# phase 16: training through the general attention route
+# 16a: (b, l, h, d, q0, q1, lk, contiguous q/k): queries q0:q1 over keys
+# :lk of a fused qkv [b, l, 3 h d], each batch element at its own scale:
+# the train path's batch at 16 heads of 64 and of 48 (column slices, and
+# contiguous q / k as the qk_norm blocks' RMSNorm hands them), d 40 and
+# 20 (the padded copies), both halves of subset attention (3072 queries
+# over 4098 keys, 1026 over 1026), and shapes off the kernels' tiling (one
+# query over 3 keys: over one key dq and dk are 0 and a relative error has
+# no scale)
+GENERAL_TRAIN_CASES = (
+    (4, 4098, 16, 64, 0, 4098, 4098, False),
+    (4, 4098, 16, 48, 0, 4098, 4098, False),
+    (4, 4098, 16, 64, 0, 4098, 4098, True),
+    (2, 700, 3, 40, 0, 700, 700, False),
+    (2, 1100, 5, 20, 0, 1100, 1100, False),
+    (4, 4098, 16, 64, 1026, 4098, 4098, False),
+    (4, 4098, 16, 64, 0, 1026, 1026, False),
+    (1, 70, 3, 64, 0, 70, 70, False), (2, 129, 2, 32, 0, 129, 129, True),
+    (1, 300, 2, 64, 298, 300, 300, False), (1, 3, 2, 64, 0, 1, 3, False),
+    (3, 200, 2, 8, 0, 200, 200, False))
+
+
+def full_twin_by_head(torch, twin, h, *tensors):
+    """A general-route twin run one head at a time on [b, l, h, d] inputs
+    (and an lse [b, h, l]), its outputs joined again: one head's f32 score
+    matrices alive at a time."""
+    parts = []
+    for i in range(h):
+        out = twin(*(x[:, :, i:i + 1] if x.dim() == 4 else x[:, i:i + 1]
+                     for x in tensors))
+        parts.append(out if isinstance(out, tuple) else (out,))
+    return tuple(torch.cat(p, 2 if p[0].dim() == 4 else 1)
+                 for p in zip(*parts))
+
+
+def general_train_case(torch, dev, gen, b, n, h, d, q0, q1, lk,
+                       contiguous: bool):
+    """#5s and #5b against their twins (run head by head) on bf16 inputs;
+    errors relative per batch element."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=dev)
+    qkv *= torch.tensor(QKV_SCALES[:b], device=dev)[:, None, None]
+    q, k, v = (x.reshape(b, n, h, d)
+               for x in qkv.to(torch.bfloat16).chunk(3, dim=-1))
+    if contiguous:
+        q, k = q.contiguous(), k.contiguous()
+    q, k, v = q[:, q0:q1], k[:, :lk], v[:, :lk]
+    do = torch.randn((b, q1 - q0, h, d), generator=gen, device=dev)
+    do *= torch.tensor(DO_SCALES[:b], device=dev)[:, None, None, None]
+    do = do.to(torch.bfloat16)
+    o, lse = attention.flash_full_mha_stats(q, k, v)
+    o_r, lse_r = full_twin_by_head(torch, attention.flash_full_mha_stats_ref,
+                                   h, q, k, v)
+    grads = attention.flash_full_mha_bwd(q, k, v, o, do, lse)
+    refs = full_twin_by_head(torch, attention.flash_full_mha_bwd_ref, h,
+                             q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+
+    def rel(out, ref):          # the worst batch element
+        return max(rel_max(out[i], ref[i]) for i in range(b))
+
+    res = {"o_rel_max": rel(o, o_r),
+           "o_max_abs": float((o.float() - o_r.float()).abs().max()),
+           "lse_max_abs": float((lse - lse_r).abs().max()),
+           "tma_reads_views": all(attention.full_takes_view(
+               x.data_ptr(), x.shape, x.stride(), x.element_size())
+               for x in (q, k, v))}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"#5b: non-finite {name}")
+        res[f"{name}_rel_max"] = rel(g, r)
+        res[f"{name}_max_abs"] = float((g.float() - r.float()).abs().max())
+    if not torch.isfinite(o).all():
+        raise AssertionError("#5s: non-finite o")
+    return res, (q, k, v, o, do, lse)
+
+
+def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
+    """#5s and #5b by CUDA events beside their twins, SDPA's forward on the
+    same inputs, SDPA's backward alone (autograd.grad over a retained
+    graph) and their bounds; the backward's device ms by kernel."""
+    import torch.nn.functional as F
+
+    from open_diffusiongs_tpu_torch.ops import attention
+    b, l, h, d = q.shape
+    res = {"fwd_ms": cuda_ms(lambda: attention.flash_full_mha_stats(q, k, v),
+                             20),
+           "bwd_ms": cuda_ms(lambda: attention.flash_full_mha_bwd(
+               q, k, v, o, do, lse), 20),
+           "fwd_plain_ms": cuda_ms(lambda: full_twin_by_head(
+               torch, attention.flash_full_mha_stats_ref, h, q, k, v), 1),
+           "bwd_plain_ms": cuda_ms(lambda: full_twin_by_head(
+               torch, attention.flash_full_mha_bwd_ref, h, q, k, v, o, do,
+               lse), 1),
+           "bwd_kernels_ms": device_ms_by_kernel(
+               torch, lambda: attention.flash_full_mha_bwd(q, k, v, o, do,
+                                                           lse)),
+           "fwd_bound": attn_fwd_bound(b, l, l, h, d, stats=True,
+                                       pv="tf32"),
+           "bwd_bound": attn_bwd_bound(b, l, l, h, d)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    with torch.no_grad():
+        res["sdpa_fwd_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    res["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+    return res
+
+
+def phase_general_train_kernels(torch, dev) -> dict:
+    """16a: #5s and #5b against their twins at GENERAL_TRAIN_CASES; q~'s
+    rounding; determinism; the build; times at b = 4, L = 4098."""
+    from open_diffusiongs_tpu_torch.ops import _build, attention
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases, timed = {}, {}
+    for b, n, h, d, q0, q1, lk, contiguous in GENERAL_TRAIN_CASES:
+        name = f"{b}x{n}x{h}x{d}"
+        if (q0, q1, lk) != (0, n, n):
+            name += f" queries {q0}:{q1} over {lk} keys"
+        if contiguous:
+            name += " contiguous q/k"
+        cases[name], inputs = general_train_case(torch, dev, gen, b, n, h, d,
+                                                 q0, q1, lk, contiguous)
+        if (b, n, q0, lk, contiguous) == (TRAIN_BATCH, 4098, 0, 4098,
+                                           False):
+            timed[f"h{h}_d{d}"] = inputs
+        del inputs
+    q, k, v, o, do, lse = timed["h16_d64"]
+    # Determinism: two launches of the backward on the same inputs agree
+    # bit for bit (every output written once, sums in a fixed order).
+    g1 = attention.flash_full_mha_bwd(q, k, v, o, do, lse)
+    g2 = attention.flash_full_mha_bwd(q, k, v, o, do, lse)
+    bit_identical = all(torch.equal(x, y) for x, y in zip(g1, g2))
+    del g1, g2
+    with open(os.path.join(ROOT, "open_diffusiongs_tpu_torch", "csrc",
+                           "flash_full_bwd.cu")) as f:
+        atomic_free = "atomic" not in f.read().lower()
+    # q~ = bf16(q * bf16(d^-1/2)), the training function's (not #5's
+    # bf16(d^-1/2 log2 e)): the helper bit for bit on the card, and at 3x
+    # scores the kernel's o sits on the training twin, not on #5's.
+    q3 = (q.float() * 3.0).to(torch.bfloat16)
+    o3 = attention.flash_full_mha_stats(q3, k, v)[0].float()
+    prescale = {
+        "helper_bit_exact": all(torch.equal(
+            attention._train_prescaled_q(x),
+            (x.float() * attention._train_scale(x.shape[-1], x.dtype))
+            .to(torch.bfloat16)) for x in (q, timed["h16_d48"][0])),
+        "mean_err_to_train_twin": float((o3 - full_twin_by_head(
+            torch, attention.flash_full_mha_stats_ref, 16, q3, k, v)[0]
+            .float()).abs().mean()),
+        "mean_err_to_serving_twin": float((o3 - full_twin_by_head(
+            torch, attention.flash_full_mha_ref, 16, q3, k, v)[0]
+            .float()).abs().mean())}
+    del q3, o3
+    builds, warnings = {}, 0
+    for src, entry in (("flash_full_fwd.cu", "flash_full_kernel"),
+                       ("flash_full_bwd.cu", "flash_full_bwd")):
+        try:
+            log = _build.build_log(src)
+        except FileNotFoundError:
+            raise AssertionError(f"the build holds no report of {src}")
+        builds.update({f"{src} {k}": v
+                       for k, v in ptxas_summary(log, entry).items()
+                       if src != "flash_full_fwd.cu" or "stats=1" in k})
+        warnings += len(re.findall(r"C75(?:15|19|20)", log))
+    times = {key: general_train_timing(torch, *inputs)
+             for key, inputs in timed.items()}
+    del timed, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    res = {"cases": cases, "times": times,
+           "bwd_bit_identical": bit_identical,
+           "bwd_source_atomic_free": atomic_free, "prescale": prescale,
+           "ptxas": builds, "ptxas_serialisation_warnings": warnings,
+           "max_abs_err_fwd": max(max(c["o_max_abs"], c["lse_max_abs"])
+                                  for c in cases.values()),
+           "max_abs_err_bwd": max(c[f"{n}_max_abs"] for c in cases.values()
+                                  for n in ("dq", "dk", "dv")),
+           "timed": f"b={TRAIN_BATCH} L=4098 h=16, d 64 and 48, bf16 column "
+                    f"slices of a fused qkv",
+           "card": card_line()}
+    print(f"[16a general-route training kernels] {json.dumps(res)}",
+          flush=True)
+    for name, c in cases.items():
+        checks = [("o rel-max", c["o_rel_max"], ATTN_REL_BOUND),
+                  ("lse max abs", c["lse_max_abs"], LSE_ABS_BOUND)]
+        checks += [(f"{n} rel-max", c[f"{n}_rel_max"], GRAD_REL_BOUND)
+                   for n in ("dq", "dk", "dv")]
+        for what, val, bound in checks:
+            if not val <= bound:
+                raise AssertionError(f"general-route training {name}: "
+                                     f"{what} {val:.3g} > {bound}")
+    if not bit_identical:
+        raise AssertionError("#5b: dq/dk/dv differ between two launches on "
+                             "the same inputs")
+    if not atomic_free:
+        raise AssertionError("csrc/flash_full_bwd.cu uses atomics")
+    if not prescale["helper_bit_exact"]:
+        raise AssertionError("the training q~ differs from bf16(q * "
+                             "bf16(d^-1/2)) on the card")
+    if not (prescale["mean_err_to_train_twin"]
+            < 0.5 * prescale["mean_err_to_serving_twin"]):
+        raise AssertionError(f"#5s does not compute the training function: "
+                             f"{prescale}")
+    if len(builds) != 3 + 6:    # 3 STATS tiles; dQ and dK/dV at 3 tiles
+        raise AssertionError(f"ptxas reports {sorted(builds)}")
+    spills = {k: v for k, v in builds.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    if spills or warnings:
+        raise AssertionError(f"ptxas: spills {spills}, {warnings} wgmma "
+                             f"serialisation warnings")
+    return res
+
+
+def phase_qk_norm_train(torch, dev) -> dict:
+    """16b: 24 DiTBlock(1024, 16, qk_norm=True), forward and backward at
+    the train path's b = 4, L = 4098, bf16 (no block checkpointing)."""
+    from open_diffusiongs_tpu_torch.models.transformer import DiTBlock
+    from open_diffusiongs_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    width, heads, layers = 1024, 16, 24
+    l = 2 + N_VIEWS * (RES // 8) ** 2                       # 4098
+    blocks = torch.nn.ModuleList(
+        DiTBlock(width, heads, dtype=torch.bfloat16, qk_norm=True)
+        for _ in range(layers)).to(dev)
+    with torch.no_grad():
+        for name, p in blocks.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn((TRAIN_BATCH, l, width), generator=gen, device=dev)
+    c = torch.randn((TRAIN_BATCH, width), generator=gen, device=dev)
+    params = list(blocks.parameters())
+
+    def step():
+        h = x
+        for blk in blocks:
+            h = blk(h, c)
+        return torch.autograd.grad(h.float().square().mean(), params)
+
+    step()                                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(attention)
+    t0 = time.perf_counter()
+    grads = step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(attention)
+    want = dict({n: 0 for n in launches}, LAUNCHES_FULL_STATS=layers,
+                LAUNCHES_FULL_BWD=layers)
+    res = {"seconds": secs, "launches": launches, "expected_launches": want,
+           "finite_grads": all(bool(torch.isfinite(g).all()) for g in grads),
+           "min_qkv_grad_norm": min(float(g.norm()) for (n, _), g in zip(
+               blocks.named_parameters(), grads) if n.endswith("qkv.weight")),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "shape": f"{layers} x DiTBlock({width}, {heads}, qk_norm=True), "
+                    f"b={TRAIN_BATCH} L={l} bf16, forward + backward",
+           "card": card_line()}
+    print(f"[16b qk-norm stack training] {json.dumps(res)}", flush=True)
+    if launches != want:
+        raise AssertionError(f"attention launches {launches} != {want}")
+    if not res["finite_grads"] or not res["min_qkv_grad_norm"] > 0:
+        raise AssertionError("qk-norm stack: non-finite or zero gradients")
+    return res
+
+
+def phase_general_train(torch, dev) -> dict:
+    """16c: phase 8's train step with 16 heads of 48 (width 768), all 24
+    layers: the general route's training kernels in the step."""
+    return phase_train(torch, dev, label="16c general-route train step",
+                       overrides=("system.shape_model.width=768",
+                                  "system.shape_model.dim_heads=48"))
+
+
 # phases 13-14: the training / evaluation CLI on synthetic trees
 CONFIG_SCENE_EVAL = os.path.join(ROOT, "configs",
                                  "diffusionGS_scene_eval.yaml")
@@ -2023,6 +2350,7 @@ def expected_counts(steps=0, evals=0, sample_views=(), path_frames=0,
         "attention.LAUNCHES_BWD": steps * n_layers,
         "attention.LAUNCHES_SMAX": 0, "attention.LAUNCHES_FULL": 0,
         "attention.LAUNCHES_MHA_FULL": 0,
+        "attention.LAUNCHES_FULL_STATS": 0, "attention.LAUNCHES_FULL_BWD": 0,
         "blend_kernel.LAUNCHES": (steps + evals * EVAL_PASSES) * views
         + blend_sample + path_frames,
         "blend_kernel.LAUNCHES_BWD": steps * views,
@@ -2804,6 +3132,15 @@ def main() -> int:
                     kept_256[0].gaussians, kept_256[0].renders,
                     kept_512[0].gaussians)
     del system, kept_256, kept_512
+    torch.cuda.empty_cache()
+    general_kernels = timed("16a general-route training kernels",
+                            phase_general_train_kernels, torch, dev)
+    torch.cuda.empty_cache()
+    qk_train = timed("16b qk_norm stack training", phase_qk_norm_train,
+                     torch, dev)
+    torch.cuda.empty_cache()
+    general_train = timed("16c general-route train step",
+                          phase_general_train, torch, dev)
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
     print("[host split] " + json.dumps({
         f"{RES}^2": main_res["host_split"],
@@ -2826,6 +3163,7 @@ def main() -> int:
 
     src = "open_diffusiongs_tpu_torch/csrc/"
     density = serving["density"][1]     # phase 5's asset at 256
+    t64, t48 = (general_kernels["times"][k] for k in ("h16_d64", "h16_d48"))
     kernels = [
         {"name": "flash_mha_packed", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
@@ -2915,6 +3253,31 @@ def main() -> int:
          "ms_shell_128": serving["density"][0]["ms"],
          "ms_trained_512": serving["density"][2]["ms"],
          "launches_cli": serving["u2net_cli"]["cli_density_launches"]},
+        # the general route's training pair, at b = 4, L = 4098, 16 heads
+        # of 64 (and of 48 beside); launches in phase 16c's three steps
+        {"name": "flash_full_mha_stats", "route": "cuda",
+         "source": src + "flash_full_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/models/transformer.py:141 "
+                     "(_ffsb_fwd: splash's forward, a JAX library kernel; "
+                     "the STATS flag of #5's file)",
+         "launches": general_train["launches"]["general_fwd_lse"],
+         "max_abs_err": general_kernels["max_abs_err_fwd"],
+         "ms": t64["fwd_ms"], "plain_ms": t64["fwd_plain_ms"],
+         **roof(t64["fwd_bound"]), "library_ms": t64["sdpa_fwd_ms"],
+         "ms_d48": t48["fwd_ms"], "bound_ms_d48": t48["fwd_bound"]["bound_ms"],
+         "library_ms_d48": t48["sdpa_fwd_ms"],
+         "launches_qk_norm_stack": qk_train["launches"]["LAUNCHES_FULL_STATS"]},
+        {"name": "flash_full_mha_bwd", "route": "cuda",
+         "source": src + "flash_full_bwd.cu",
+         "replaces": "open_diffusiongs_tpu/models/transformer.py:148 "
+                     "(_ffsb_bwd: splash's backward, a JAX library kernel)",
+         "launches": general_train["launches"]["general_bwd"],
+         "max_abs_err": general_kernels["max_abs_err_bwd"],
+         "ms": t64["bwd_ms"], "plain_ms": t64["bwd_plain_ms"],
+         **roof(t64["bwd_bound"]), "library_ms": t64["sdpa_bwd_ms"],
+         "ms_d48": t48["bwd_ms"], "bound_ms_d48": t48["bwd_bound"]["bound_ms"],
+         "library_ms_d48": t48["sdpa_bwd_ms"],
+         "launches_qk_norm_stack": qk_train["launches"]["LAUNCHES_FULL_BWD"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -78,6 +78,26 @@
 //     cores; then it waits for that product, releases stage j-1 and
 //     rescales O.  The two warpgroups also overlap each other.
 //   * Epilogue: O / l in bf16 from registers, columns < d, rows < lq.
+//
+// STATS (#5s, odgs_flash_full_fwd_stats_bf16): the forward of the general
+// route's TRAINING function, the primal of JAX's custom_vjp
+// models/transformer.py::_flash_fwd_splash_bwd (_ffsb_fwd :141-146), which
+// differentiates splash on `q_ * scale` (_splash_attention :75-113; splash
+// itself is a JAX library kernel, so this flag and flash_full_bwd.cu stand
+// in for its forward and backward).  It differs from #5 in two roundings:
+//   q~ = bf16(q * bf16(d^-1/2)) (splash's pre-scale: a bf16 array times a
+//   weak-typed Python scale), NOT #5's bf16(q * bf16(d^-1/2 * log2 e)): at
+//   d = 64 the two logit scales differ by 0.18 %.  The wrapper passes
+//   scale = bf16(d^-1/2), and q~ is formed in registers as above;
+//   the softmax is natural-base: m is the running max of the f32 scores
+//   s = q~.k, and P = exp2(s * log2 e - m * log2 e) (one FFMA a score).
+// It also writes the base-2 log-sum-exp lse = m * log2 e + log2(l) of every
+// row < lq, f32, into the backward's [b, h, pitch] layout (pitch = lq
+// rounded up to a multiple of 4, ops/attention.py::stats_pitch), for
+// flash_full_bwd.cu.  P.V stays #5's split f32 product (P_hi + P_lo) and l
+// sums the unrounded P, so o and lse are both the f32 function's; the
+// backward rebuilds P from lse and rounds it to bf16 only as a wgmma
+// operand.
 
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +115,7 @@ constexpr int BK = 128;          // keys per stage
 constexpr int NSTAGE = 3;
 constexpr int NTHREADS = 3 * WG; // consumers 0 and 1, producer 2
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
 struct FullSmem {
@@ -107,7 +128,8 @@ struct FullSmem {
 struct FullParams {
   CUtensorMap tq, tk, tv;
   __nv_bfloat16* o;     // contiguous [b, lq, h, d]
-  int lq, lk, h, d;
+  float* lse;           // STATS: [b, h, pitch] f32
+  int lq, lk, h, d, pitch;
   float scale;          // bf16-representable
 };
 
@@ -124,7 +146,7 @@ __device__ __forceinline__ void round_bf16x2(float& a, float& b) {
   b = __uint_as_float(u & 0xffff0000u);
 }
 
-template <int DH, bool SPLIT, bool SCORE_BF16>
+template <int DH, bool SPLIT, bool SCORE_BF16, bool STATS>
 __device__ __forceinline__ void full_consumer(const FullParams& p,
                                               FullSmem<DH>& s, int wg,
                                               int q0, int head, int bi,
@@ -201,6 +223,9 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
     if (SCORE_BF16) {
       alpha[0] = round_bf16(exp2f(round_bf16(m_run[0] - mt0)));
       alpha[1] = round_bf16(exp2f(round_bf16(m_run[1] - mt1)));
+    } else if (STATS) {   // natural-base scores
+      alpha[0] = exp2f((m_run[0] - mt0) * LOG2E);
+      alpha[1] = exp2f((m_run[1] - mt1) * LOG2E);
     } else {
       alpha[0] = exp2f(m_run[0] - mt0);
       alpha[1] = exp2f(m_run[1] - mt1);
@@ -208,10 +233,19 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
     m_run[0] = mt0;
     m_run[1] = mt1;
     ls[0] = ls[1] = 0.f;
+    const float ms0 = mt0 * LOG2E, ms1 = mt1 * LOG2E;   // STATS only
 #pragma unroll
     for (int i = 0; i < BK / 2; i += 2) {   // a pair shares its row
       const float m = (i & 2) ? mt1 : mt0;
-      float e0 = sacc[i] - m, e1 = sacc[i + 1] - m;
+      float e0, e1;
+      if (STATS) {
+        const float ms = (i & 2) ? ms1 : ms0;
+        e0 = fmaf(sacc[i], LOG2E, -ms);
+        e1 = fmaf(sacc[i + 1], LOG2E, -ms);
+      } else {
+        e0 = sacc[i] - m;
+        e1 = sacc[i + 1] - m;
+      }
       if (SCORE_BF16) round_bf16x2(e0, e1);
       e0 = exp2f(e0);
       e1 = exp2f(e1);
@@ -294,6 +328,11 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
   l1 += __shfl_xor_sync(FULL, l1, 1);
   l1 += __shfl_xor_sync(FULL, l1, 2);
   const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  if (STATS && t4 == 0) {   // l >= 1: the row's max contributes 2^0
+    float* lrow = p.lse + (long long)(bi * p.h + head) * p.pitch;
+    if (r0 < p.lq) lrow[r0] = m_run[0] * LOG2E + log2f(l0);
+    if (r0 + 8 < p.lq) lrow[r0 + 8] = m_run[1] * LOG2E + log2f(l1);
+  }
   const long long pitch = (long long)p.h * p.d;   // o's row stride
   __nv_bfloat16* ob = p.o + (long long)bi * p.lq * pitch + (long long)head * p.d;
   const bool pairs = (p.d & 1) == 0;   // column pairs 4-byte aligned
@@ -318,7 +357,7 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
   }
 }
 
-template <int DH, bool SPLIT, bool SCORE_BF16>
+template <int DH, bool SPLIT, bool SCORE_BF16, bool STATS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_full_kernel(const __grid_constant__ FullParams p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -353,17 +392,20 @@ flash_full_kernel(const __grid_constant__ FullParams p) {
   } else {
     setmaxnreg_inc<232>();
     if (wg < n_active)
-      full_consumer<DH, SPLIT, SCORE_BF16>(p, s, wg, q0, head, bi, n_kt);
+      full_consumer<DH, SPLIT, SCORE_BF16, STATS>(p, s, wg, q0, head, bi,
+                                                  n_kt);
   }
 }
 
-template <int DH, bool SPLIT, bool SCORE_BF16>
+template <int DH, bool SPLIT, bool SCORE_BF16, bool STATS = false>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int lq, int lk, int h, int d, int dm, float scale, long long q_sb,
            long long q_sl, long long q_sh, long long k_sb, long long k_sl,
            long long k_sh, long long v_sb, long long v_sl, long long v_sh,
-           cudaStream_t stream) {
+           cudaStream_t stream, void* lse = nullptr) {
   FullParams p;
+  p.lse = static_cast<float*>(lse);
+  p.pitch = (lq + 3) / 4 * 4;
   if (!make_map_heads_bf16<DH>(&p.tq, q, dm, h, lq, b, q_sh, q_sl, q_sb, BQ) ||
       !make_map_heads_bf16<DH>(&p.tk, k, dm, h, lk, b, k_sh, k_sl, k_sb, BK) ||
       !make_map_heads_bf16<DH>(&p.tv, v, dm, h, lk, b, v_sh, v_sl, v_sb, BK))
@@ -374,7 +416,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   p.h = h;
   p.d = d;
   p.scale = scale;
-  auto kern = flash_full_kernel<DH, SPLIT, SCORE_BF16>;
+  auto kern = flash_full_kernel<DH, SPLIT, SCORE_BF16, STATS>;
   constexpr int smem = smem_bytes<FullSmem<DH>>();
   static bool configured = false;
   if (!configured) {
@@ -422,5 +464,28 @@ extern "C" int odgs_flash_full_fwd_bf16(
   if (d != 64) return static_cast<int>(cudaErrorInvalidValue);
   if (score_bf16) return launch<64, false, true>(ODGS_FULL_ARGS);
   return launch<64, false, false>(ODGS_FULL_ARGS);
+#undef ODGS_FULL_ARGS
+}
+
+// #5s: the same launch with STATS (see the header): scale = bf16(d^-1/2),
+// and lse an f32 [b, h, pitch] buffer (pitch = lq rounded up to a multiple
+// of 4) whose columns < lq are written.  Any d in 1..64.
+extern "C" int odgs_flash_full_fwd_stats_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int lq, int lk, int h, int d, int dm, float scale, long long q_sb,
+    long long q_sl, long long q_sh, long long k_sb, long long k_sl,
+    long long k_sh, long long v_sb, long long v_sl, long long v_sh,
+    void* stream) {
+  if (b == 0 || lq == 0 || h == 0) return 0;
+  const int tile = d <= 16 ? 16 : d <= 32 ? 32 : 64;
+  if (lk < 1 || d < 1 || d > 64 || dm < d || dm > tile || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ODGS_FULL_ARGS                                                      \
+  q, k, v, o, b, lq, lk, h, d, dm, scale, q_sb, q_sl, q_sh, k_sb, k_sl,     \
+      k_sh, v_sb, v_sl, v_sh, s, lse
+  if (tile == 16) return launch<16, true, false, true>(ODGS_FULL_ARGS);
+  if (tile == 32) return launch<32, true, false, true>(ODGS_FULL_ARGS);
+  return launch<64, true, false, true>(ODGS_FULL_ARGS);
 #undef ODGS_FULL_ARGS
 }

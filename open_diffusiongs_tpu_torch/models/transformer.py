@@ -37,9 +37,14 @@ W8A8 serving (`quant_int8`, transformer.py:352-361, :413-418, :455-476):
 q/k/v/proj and fc1/fc2 of every block become ops/quant.py::QuantLinear;
 adaLN_modulation stays full precision, as in JAX.
 
-Left out of this port (ROADMAP Queue 1): splash (a JAX library kernel; it
-also carries JAX's training through the general route, which the port's
-card path refuses) and ring / pipeline / tensor-parallel meshes.
+Training through the general route: JAX differentiates it through splash
+on `q * d^-1/2` (transformer.py:116-152); the port runs that training
+function on its own kernels, `FlashFullMHA` (ops/attention.py: the stats
+forward #5s and the backward #5b), whenever grad mode is on and an input
+requires grad, and #5's serving forward otherwise.
+
+Left out of this port (ROADMAP Queue 1): splash as an `attn_impl` of its
+own (a JAX library kernel) and ring / pipeline / tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import flash_attention, flash_full_mha
+from ..ops.attention import flash_attention, flash_full_attention
 from ..ops.quant import QuantLinear
 
 ATTN_IMPLS = ("auto", "flash", "splash", "xla")
@@ -147,8 +152,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: str = "auto") -> torch.Tensor:
     """q/k/v [b, l, h, d] (transformer.py:155-167).  'auto'/'flash':
-    flash_full_mha (its kernel on CUDA tensors, its plain twin on CPU
-    ones); 'xla': exact plain attention; 'splash' raises."""
+    ops/attention.py::flash_full_attention, which trains through
+    `FlashFullMHA` (#5s + #5b, JAX's splash-differentiated function) when
+    grad mode is on and an input requires grad and serves through #5
+    otherwise (kernels on CUDA tensors, plain twins on CPU ones); 'xla':
+    exact plain attention; 'splash' raises."""
     impl = resolve_attn_impl(impl)
     if impl == "splash":
         raise NotImplementedError(
@@ -156,7 +164,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "reproduce (ROADMAP Queue 1 #15)")
     if impl == "xla":
         return dot_product_attention(q, k, v)
-    return flash_full_mha(q, k, v)     # raises for d > 64 (JAX: splash)
+    return flash_full_attention(q, k, v)   # raises for d > 64 (JAX: splash)
 
 
 def subset_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -205,7 +213,9 @@ class Attention(nn.Module):
     copy), differentiable through its backward kernels when training, the
     stats-free forward under no_grad; every other block (qk_norm, or a head
     layout failing the lane test) splits qkv into [b, l, h, d], applies the
-    per-head q/k RMSNorm when `qk_norm`, and runs `fused_attention`.  The
+    per-head q/k RMSNorm when `qk_norm`, and runs `fused_attention`,
+    differentiable through the general route's own kernels (#5s forward,
+    #5b backward) when training, #5's forward under no_grad.  The
     lane test is the TPU's, not the GPU's: it is kept because the two
     routes round the q pre-scale differently, and one config must compute
     one function in both packages.

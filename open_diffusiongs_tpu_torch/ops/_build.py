@@ -58,6 +58,14 @@ SIGNATURES = {
     # stream
     "odgs_flash_full_fwd_bf16": [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9
                                 + [_I, _I, _P],
+    # q, k, v, o, lse, b, lq, lk, h, d, dm, scale (bf16(d^-1/2)), q/k/v
+    # batch, row and head strides (elements), stream
+    "odgs_flash_full_fwd_stats_bf16": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9
+                                      + [_P],
+    # q~, k, v, dout, lse, delta, dq, dk, dv, b, lq, lk, h, d, dm, dq_scale,
+    # q~/k/v/dout batch, row and head strides (elements), stream
+    "odgs_flash_full_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F] + [_L] * 12
+                                + [_P],
     # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, l_real, scale,
     # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
     "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_L] * 14

@@ -8,9 +8,11 @@ Counterparts of open_diffusiongs_tpu/ops/attention.py:
     csrc/flash_attn_bwd.cu (the dQ and dK/dV kernels);
   * `flash_full_mha` (:638-665) on [b, l, h, d], the DiT's general route:
     csrc/flash_full_fwd.cu, which also runs the bench variant `mha_full`
-    of tools/bench_attn2.py (:89-126) on [h, L, 64].
-All three kernels are warp-specialised TMA + mbarrier rings feeding
-`wgmma` (csrc/hopper.cuh).
+    of tools/bench_attn2.py (:89-126) on [h, L, 64] and, with its STATS
+    flag, the route's training forward; csrc/flash_full_bwd.cu is that
+    forward's backward (see below).
+All the kernels are warp-specialised TMA + mbarrier rings feeding `wgmma`
+(csrc/hopper.cuh).
 The plain versions (`*_ref`) compute the same functions with explicit f32
 formulas.  Each wrapper takes its plain version only for CPU tensors (the
 test oracle); on a CUDA tensor it launches its kernel or raises — never a
@@ -23,9 +25,18 @@ forward runs the stats forward and saves (qkv, o, lse), as the JAX
 custom_vjp saves (q, k, v, o, lse) (models/transformer.py:266-283); its
 backward runs the backward kernels and returns one contiguous [b, L, 3·h·dh]
 gradient for the fused qkv projection.  Under `torch.no_grad` (sampling)
-`flash_attention` runs the stats-free forward.  The general route has no
-backward kernel yet (JAX differentiates it through splash): on the card it
-serves sampling only.
+`flash_attention` runs the stats-free forward.
+
+The general route trains through `flash_full_attention(q, k, v)`, which
+routes through `FlashFullMHA`: JAX differentiates that route through
+splash on `q * d^-1/2` (transformer.py:116-152, a JAX library kernel), so
+the port has its own pair: the stats forward #5s (a flag of
+csrc/flash_full_fwd.cu) computes that training function and its base-2
+lse, and csrc/flash_full_bwd.cu (#5b) its dq, dk and dv.  The training
+function rounds q's pre-scale as splash's input does, bf16(q·bf16(d^-½)),
+not as #5's serving forward, bf16(q·bf16(d^-½·log₂e)) (`_full_prescaled_q`,
+0.18 % apart at d = 64); `flash_full_attention` under no_grad runs #5, as
+JAX keeps that primal for inference.
 
 The JAX DiT pads the token axis once around the whole stack to a block
 multiple (transformer.py:525-538, plan_packed :125-139: 4098 -> 4608 at
@@ -50,6 +61,8 @@ LAUNCHES_SMAX = 0    # scalar-max packed forward launches
 LAUNCHES_BWD = 0     # backward launches (one dQ + one dK/dV kernel each)
 LAUNCHES_FULL = 0    # flash_full_mha kernel launches (the general route)
 LAUNCHES_MHA_FULL = 0  # mha_full (bench variant) kernel launches
+LAUNCHES_FULL_STATS = 0  # flash_full_mha_stats (#5s) kernel launches
+LAUNCHES_FULL_BWD = 0    # flash_full_mha_bwd (#5b) launches (dQ + dK/dV)
 
 PACKED_DH = (16, 32, 64)   # head widths of the packed kernels
 SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
@@ -522,21 +535,201 @@ def flash_full_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     the views through TMA where `full_takes_view` allows (column slices of
     a fused qkv, d 64 / 48 / 40, subset halves) and zero-padded copies
     otherwise (e.g. d = 20: 40-byte heads).  It records no gradient and
-    refuses inputs that require grad under grad mode: the general route has
-    no backward kernel yet."""
+    refuses inputs that require grad under grad mode: training goes
+    through `flash_full_attention` (`FlashFullMHA`)."""
     global LAUNCHES_FULL
     b, l, lk, h, d = _check_full(q, k, v)
     if q.device.type == "cpu":
         return flash_full_mha_ref(q, k, v)
+    _refuse_grad("flash_full_mha", q, k, v, route=FULL_ROUTE)
     _check_bf16_cuda("flash_full_mha", dict(q=q, k=k, v=v), aligned=False)
-    _refuse_grad("flash_full_mha", q, k, v,
-                 route="a backward of the general route, which the port "
-                       "does not have yet (ROADMAP Queue 1)")
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     _launch_full("flash_full_mha", q, k, v, out, lk, _full_scale(d, q.dtype),
                  pv_f32=True, score_bf16=False)
     LAUNCHES_FULL += 1
     return out
+
+
+FULL_ROUTE = "flash_full_attention (FlashFullMHA)"
+
+
+@functools.lru_cache(maxsize=None)
+def _train_scale(d: int, dtype: torch.dtype) -> float:
+    """d^-1/2 rounded to `dtype`: the scale of the general route's training
+    function, splash on `q_ * scale` with a weak-typed Python scale
+    (transformer.py:141-146), which JAX rounds to q's dtype."""
+    return float(torch.tensor(d ** -0.5, dtype=dtype))
+
+
+def _train_prescaled_q(q: torch.Tensor) -> torch.Tensor:
+    """q~ of the training function: q · `_train_scale`, the product taken in
+    f32 and rounded once to q's dtype (PyTorch's rule for a Python scalar),
+    which for bf16 is JAX's bf16 product bit for bit: two bf16 values
+    multiply exactly in f32.  In bf16 this is NOT #5's `_full_prescaled_q`
+    (whose scale folds in log2 e before rounding)."""
+    return q * _train_scale(q.shape[-1], q.dtype)
+
+
+def flash_full_mha_stats_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor):
+    """Plain PyTorch version of #5s: q~ = `_train_prescaled_q(q)`, f32
+    scores s = q~·kᵀ, a natural-base softmax over all keys (taken as
+    2^(s·log2 e - m)) and P·V in f32.  Returns o [b, l, h, d] in q's dtype
+    and the base-2 lse [b, h, l] f32, log2 Σ_keys 2^(s·log2 e)."""
+    _check_full(q, k, v)
+    s = torch.einsum("blhd,bmhd->bhlm", _train_prescaled_q(q).float(),
+                     k.float()) * LOG2E
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhlm,bmhd->blhd", p / l, v.float())
+    return o.to(q.dtype), (m + torch.log2(l))[..., 0]
+
+
+def _check_full_bwd(q, k, v, o, do, lse):
+    b, l, lk, h, d = _check_full(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o / do must be {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}")
+    if lse.shape != (b, h, l):
+        raise ValueError(f"lse must be {(b, h, l)}, got {tuple(lse.shape)}")
+    return b, l, lk, h, d
+
+
+def flash_full_mha_bwd_ref(q, k, v, o, do, lse):
+    """Plain PyTorch version of #5b (explicit f32): P = exp2(log2 e ·
+    (q~·kᵀ) - lse), dS = P ∘ (dO·vᵀ - δ) with δ = rowsum(dO ∘ O),
+    dq = `_train_scale` · dS·k, dk = dSᵀ·q~, dv = Pᵀ·dO.  Returns
+    (dq, dk, dv) in the primal dtypes."""
+    b, l, lk, h, d = _check_full_bwd(q, k, v, o, do, lse)
+    qs = _train_prescaled_q(q).float()
+    kf, dof = k.float(), do.float()
+    p = torch.exp2(torch.einsum("blhd,bmhd->bhlm", qs, kf) * LOG2E
+                   - lse.float()[..., None])
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("blhd,bmhd->bhlm", dof, v.float()) - delta)
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, kf) * _train_scale(d, q.dtype)
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qs)
+    dv = torch.einsum("bhlm,blhd->bmhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """#5s: the general route's training forward on q [b, l, h, d] and k/v
+    [b, lk, h, d] (any d <= 64, lk may differ from l).  Returns o, a new
+    contiguous [b, l, h, d] in q's dtype, and the base-2 lse [b, h, l] f32
+    (on the card a view of the backward's [b, h, stats_pitch(l)] layout).
+
+    CPU tensors: `flash_full_mha_stats_ref`.  CUDA tensors: the sm_90a
+    kernel of csrc/flash_full_fwd.cu with its STATS flag (bf16, views read
+    as `flash_full_mha` reads them).  It records no gradient: see
+    `FlashFullMHA`."""
+    global LAUNCHES_FULL_STATS
+    b, l, lk, h, d = _check_full(q, k, v)
+    if q.device.type == "cpu":
+        return flash_full_mha_stats_ref(q, k, v)
+    _refuse_grad("flash_full_mha_stats", q, k, v, route=FULL_ROUTE)
+    _check_bf16_cuda("flash_full_mha_stats", dict(q=q, k=k, v=v),
+                     aligned=False)
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, stats_pitch(l)), dtype=torch.float32,
+                      device=q.device)
+    (q, k, v), dm = _full_operands(q, k, v)
+    err = _build.load_library().odgs_flash_full_fwd_stats_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, l, lk, h, d, dm, _train_scale(d, q.dtype),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_full_mha_stats")
+    LAUNCHES_FULL_STATS += 1
+    return out, lse[..., :l]
+
+
+def _full_stats_layout(lse: torch.Tensor) -> torch.Tensor:
+    """lse [b, h, l] f32 in the backward's [b, h, stats_pitch(l)] layout:
+    the stats forward's own view as it lies, anything else copied."""
+    b, h, l = lse.shape
+    pitch = stats_pitch(l)
+    if (lse.dtype == torch.float32 and lse.data_ptr() % 16 == 0
+            and lse.stride() == (h * pitch, pitch, 1)):
+        return lse
+    out = lse.new_zeros((b, h, pitch), dtype=torch.float32)
+    out[..., :l] = lse
+    return out[..., :l]
+
+
+def _full_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO ∘ O) per head in f32, reduced straight into the
+    backward's zero-padded [b, h, stats_pitch(l)] layout."""
+    b, l, h, _ = o.shape
+    out = torch.zeros((b, h, stats_pitch(l)), dtype=torch.float32,
+                      device=o.device)
+    prod = do.to(torch.float32, copy=True).mul_(o)
+    torch.sum(prod, -1, out=out[..., :l].transpose(1, 2))
+    return out
+
+
+def flash_full_mha_bwd(q, k, v, o, do, lse):
+    """#5b: (dq, dk, dv) of `flash_full_mha_stats` from its o and lse and
+    the output cotangent do, in the primal dtypes.
+
+    CPU tensors: `flash_full_mha_bwd_ref`.  CUDA tensors: the two sm_90a
+    kernels of csrc/flash_full_bwd.cu (bf16, any d <= 64).  q~ is formed
+    here once (`_train_prescaled_q`, as the forward rounds it) and
+    delta = rowsum(dO ∘ O) in plain torch, as for the packed route; views
+    TMA cannot address go to the kernels as zero-padded copies."""
+    global LAUNCHES_FULL_BWD
+    b, l, lk, h, d = _check_full_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_full_mha_bwd_ref(q, k, v, o, do, lse)
+    do = do.to(o.dtype).contiguous()    # no copy for the DiT's cotangent
+    _refuse_grad("flash_full_mha_bwd", q, k, v, o, do, route=FULL_ROUTE)
+    _check_bf16_cuda("flash_full_mha_bwd", dict(q=q, k=k, v=v, o=o, do=do),
+                     aligned=False)
+    lse = _full_stats_layout(lse)
+    delta = _full_delta(do, o)
+    (qs, k, v, do), dm = _full_operands(_train_prescaled_q(q), k, v, do)
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, lk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    err = _build.load_library().odgs_flash_full_bwd_bf16(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, l, lk, h, d, dm, _train_scale(d, q.dtype),
+        *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_full_mha_bwd")
+    LAUNCHES_FULL_BWD += 1
+    return dq, dk, dv
+
+
+class FlashFullMHA(torch.autograd.Function):
+    """The general route's training attention on q [b, l, h, d] and k/v
+    [b, lk, h, d]: forward = #5s (`flash_full_mha_stats`), backward = #5b
+    (`flash_full_mha_bwd`); saves q, k, v, o and lse, as JAX's custom_vjp
+    keeps splash's residuals.  On CPU tensors both are the plain twins."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_full_mha_stats(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_full_mha_bwd(q, k, v, o, do, lse)
+
+
+def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> torch.Tensor:
+    """The DiT's general route on [b, l, h, d]: differentiable through
+    `FlashFullMHA` (JAX's training function) when grad mode is on and an
+    input requires grad, otherwise #5's serving forward `flash_full_mha`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashFullMHA.apply(q, k, v)
+    return flash_full_mha(q, k, v)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:

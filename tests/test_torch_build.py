@@ -124,7 +124,7 @@ def test_stats_by_head_layout():
 
 
 @pytest.mark.parametrize("name", ["flash_attn_fwd.cu", "flash_attn_bwd.cu",
-                                  "flash_full_fwd.cu"])
+                                  "flash_full_fwd.cu", "flash_full_bwd.cu"])
 def test_packed_attention_sources_are_wgmma_tma(name):
     """The attention kernels (packed and general route) issue wgmma fed by
     TMA through mbarriers (the PTX lives in hopper.cuh); no mma.sync path is
@@ -138,7 +138,7 @@ def test_packed_attention_sources_are_wgmma_tma(name):
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier."):
         assert ptx in header, ptx
     assert not re.search(r"\bmma\.sync\.aligned", src + header)
-    if name == "flash_attn_bwd.cu":
+    if name.endswith("_bwd.cu"):
         assert "atomic" not in src.lower()
 
 
