@@ -169,26 +169,43 @@ Phases, one summary line each (every failure raises and exits non-zero):
                dumps (npz + grid PNG), trajectory videos and PLY + path
                video, peak memory, the overflow counters.
   15. serving surface
-               a. the density kernel (csrc/density_grid.cu) against
-                  density_grid_ref on the card: a synthetic shell of 20k
-                  Gaussians at resolution 128 (every slab), phase 5's
-                  filtered Gaussians and phase 11's trained-statistics
-                  512^2 Gaussians at 256 (every 8th slab; the latter's
-                  field has a surface on those planes) (atol 1e-5 + rtol
-                  1e-5, and iso crossings at 0.005 within 0.01 %); pairs,
-                  the bound (f32 operations at 67 TFLOP/s or one exp a
-                  pair at the SFU rate, SFU_PER_S), the kernel by CUDA
-                  events on all slabs and on the twin's, the twin's time;
+               a. the density stage on a synthetic shell of 20k
+                  Gaussians at resolution 128 (the twin on every slab),
+                  phase 5's filtered Gaussians and phase 11's
+                  trained-statistics 512^2 Gaussians at 256 (every 8th
+                  slab; the latter's field has a surface on those planes):
+                  gaussian_density_grid split into host seconds (inputs,
+                  selection, field, copy); the card's selection
+                  (slab_select) equal to slab_tables's numpy loop; the
+                  kernel (csrc/density_grid.cu) with its cull
+                  bit-identical to the kernel without it and to the path's
+                  grid, against density_grid_ref (atol 1e-5 + rtol 1e-5,
+                  and iso crossings at 0.005 within 0.01 %); the live
+                  pairs (kernel counters; the twin's count on its slabs),
+                  evaluated pairs and box tests, the bound these inputs
+                  need (live pairs at 25 f32 operations and one exp each,
+                  or the packed lists and the grid at the HBM rate) beside
+                  the all-pairs bound (every pair of the lists, as the
+                  first design evaluated them), the kernel by CUDA events
+                  with the cull on and off, on all slabs and on the
+                  twin's, the twin's time; the kernel's live-pair count on
+                  the twin's slabs within 1e-6 of the twin's, its counted
+                  launch's grid bit-identical to the plain launch's; what
+                  the port's tie rule changes (capped slabs whose list
+                  under np.argsort's default, JAX's call, differs from the
+                  stable one, in order or membership, and the kernel's
+                  grid from those lists against the port's);
                b. extract_mesh on the 300-Gaussian ball of
                   tests/test_mesh.py:74-93 at 256 under its bars, the
                   kernel grid's mesh against the twin grid's (vertex
                   counts within 0.1 %, symmetric Hausdorff <= one voxel),
                   save_mesh_obj; pipe.batch(extract_mesh=True) on phase
                   5's input with phase 5's system (one density launch) and
-                  the host split of its mesh (density / marching tets /
-                  clean + repair + remesh / largest component / decimate /
-                  OBJ); the same split for phase 11's trained-statistics
-                  512^2 Gaussians, meshed from 15a's grid of them;
+                  the host split of its mesh (density inputs / selection /
+                  field / copy, marching tets / clean + repair + remesh /
+                  largest component / decimate / OBJ); the same split for
+                  phase 11's trained-statistics 512^2 Gaussians, meshed
+                  from 15a's grid of them;
                c. W8A8: one 256^2 asset with quant_int8 (phase 5's weights
                   and seed; seconds and device ms of the same call, traced
                   by torch.profiler's CUDA activity; exactly 24 x 4 x 30
@@ -2589,6 +2606,9 @@ def phase_scene_eval(torch, dev, tmp: str) -> dict:
 DENSITY_TOL = dict(atol=1e-5, rtol=1e-5)   # kernel vs twin, f32 sums
 DENSITY_ISO = 0.005                        # extract_mesh's density_thresh
 ISO_COUNT_REL = 1e-4                       # iso crossings, kernel vs twin
+# live pairs, kernel counter vs twin count on the same slabs: the two round
+# the power apart, so only pairs within a few ulps of -104 or 0 may differ
+LIVE_PAIRS_REL = 1e-6
 # f32 operations a (point, Gaussian) pair needs: the offset (3), the
 # quadratic form (15), the tests (2), opacity x weight and the sum (2),
 # the exponential's argument (3); and one exponential a pair, at one
@@ -2602,6 +2622,9 @@ TWIN_CHUNK_PAIRS = 1 << 26                 # the twin's pairs alive at once
 # case with a surface on them, hold every path of the kernel
 TWIN_SLAB_STRIDE_256 = 8
 MESH_VERTS_REL = 1e-3                      # kernel vs twin grid's meshes
+# gaussian_density_grid's host split (ops/mesh.py)
+DENSITY_STAGES = ("density_inputs", "density_selection", "density_field",
+                  "density_copy")
 BALL_RES = 256
 INT8_PEAK = 1979e12                        # dense int8 TOPS (data sheet)
 QUANT = "system.shape_model.quant_int8=true"
@@ -2646,15 +2669,25 @@ def ball_gaussians():
 
 
 def density_args(torch, dev, g, res: int):
-    """ops/mesh.py's host steps for g at res: the kernel's arguments on the
-    card, slab_rows, center and scale."""
+    """ops/mesh.py's steps for g at res up to the kernel: density_inputs,
+    the card's selection (slab_select), held equal to slab_tables's numpy
+    loop table for table (a mismatch raises); the kernel's arguments on
+    the card, slab_rows, center and scale."""
     import numpy as np
     from open_diffusiongs_tpu_torch.ops import mesh
     xyz_n, inv, opa, center, scale = mesh.density_inputs(g)
-    lin, slab_z, idx, counts, rows = mesh.slab_tables(xyz_n, opa, res)
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            for x in (lin, slab_z, idx, counts, xyz_n, inv, opa)]
-    return args, rows, center, scale
+    gauss = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+             for x in (xyz_n, inv, opa)]
+    *tables, rows = mesh.slab_select(gauss[0], gauss[2], res)
+    want = mesh.slab_tables(xyz_n, opa, res)
+    for name, got, w in zip(("lin", "slab_z", "idx", "counts"), tables,
+                            want):
+        if not np.array_equal(got.cpu().numpy(), w):
+            raise AssertionError(f"slab_select's {name} differs from "
+                                 f"slab_tables's at res {res}")
+    if rows != want[4]:
+        raise AssertionError(f"slab_rows {rows} vs {want[4]}")
+    return tables + gauss, rows, center, scale
 
 
 def iso_crossings(grid, iso: float = DENSITY_ISO) -> int:
@@ -2665,64 +2698,177 @@ def iso_crossings(grid, iso: float = DENSITY_ISO) -> int:
                    for d in range(3)))
 
 
+def same_bits(torch, a, b) -> bool:
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def density_bound(live: int, nbytes: int) -> dict:
+    """The least time of the density work these inputs need: `live` pairs
+    (f32 power in (-104, 0]) at DENSITY_OPS_PER_PAIR f32 operations on the
+    FP32 pipe and one exp each at SFU_PER_S, or `nbytes` at the HBM rate."""
+    t_ops = live * DENSITY_OPS_PER_PAIR / PEAK_OPS["f32"]
+    t_exp = live / SFU_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"ms": 1e3 * max(t_ops, t_exp, t_bytes),
+            "by": "operations" if max(t_ops, t_exp) >= t_bytes else "bytes",
+            "ops_ms": 1e3 * t_ops, "exp_ms": 1e3 * t_exp,
+            "bytes_ms": 1e3 * t_bytes}
+
+
+def tie_order_effect(torch, dev, args, rows: int, grid, xyz_n, opa,
+                     relax: float = 0.1) -> dict:
+    """What the port's rule for equal opacities (ascending index) changes
+    against JAX's own call, np.argsort's default (not stable): the capped
+    slabs, those whose list differs in order, those whose members differ,
+    and the kernel's grid from JAX's lists against `grid` (the port's)."""
+    import numpy as np
+    from open_diffusiongs_tpu_torch.ops import mesh
+    lin_t, slab_z_t, idx_t, counts_t = args[:4]
+    lin, slab_z = lin_t.cpu().numpy(), slab_z_t.cpu().numpy()
+    idx, counts = idx_t.cpu().numpy(), counts_t.cpu().numpy()
+    cap = idx.shape[1]
+    jax_idx = idx.copy()
+    capped = order = members = 0
+    for s in np.nonzero(counts == cap)[0]:
+        z0, z1 = slab_z[s]
+        vmin = np.stack([lin[0], lin[0], lin[z0]]) - relax
+        vmax = np.stack([lin[-1], lin[-1], lin[z1 - 1]]) + relax
+        cand = np.nonzero(((xyz_n > vmin) & (xyz_n < vmax)).all(-1))[0]
+        if len(cand) <= cap:
+            continue
+        capped += 1
+        jax_idx[s] = cand[np.argsort(-opa[cand])[:cap]]   # JAX's call
+        order += not np.array_equal(jax_idx[s], idx[s])
+        members += not np.array_equal(np.sort(jax_idx[s]), np.sort(idx[s]))
+    rec = mesh.density_records(torch.from_numpy(jax_idx).to(dev), *args[4:])
+    grid_jax = mesh.density_kernel(lin_t, slab_z_t, counts_t, rec, rows)
+    diff = (grid_jax - grid).abs()
+    return {"capped_slabs": capped, "order_differs": order,
+            "members_differ": members,
+            "points_differ": int((diff > 0).sum()),
+            "max_abs_diff": float(diff.max()),
+            "iso_crossings_jax_order": iso_crossings(grid_jax),
+            "iso_crossings": iso_crossings(grid)}
+
+
 def density_case(torch, dev, g, res: int, label: str,
                  twin_stride: int = 1) -> tuple:
-    """The density kernel against density_grid_ref on the card, the twin
-    on every `twin_stride`-th slab (the kernel's grid compared on those
-    slabs' z planes), with the pairs this input needs and the bound.  The
-    twin is timed once by the host clock around a synchronized call, the
-    kernel by CUDA events on all slabs and on the twin's.  Returns the
-    record and what ops/mesh.py::gaussian_density_grid returns for g
-    (grid on the host, center, scale), made here by its own steps (host
-    steps, the kernel, the copy; their host seconds are the record's
-    density_s)."""
+    """The density stage for g at res: ops/mesh.py::gaussian_density_grid
+    itself, split into host seconds at synchronized edges (inputs,
+    selection, field, copy); the card's selection held equal to
+    slab_tables's; the kernel with the cull bit-identical to the kernel
+    without it and to the path's grid; both against density_grid_ref on
+    the card, the twin on every `twin_stride`-th slab (the grids compared
+    on those slabs' z planes); the live pairs (the kernel's counters on
+    all slabs and on the twin's, the twin's own count there), the
+    evaluated pairs, the box tests, the bound these inputs need beside
+    the all-pairs bound, the kernel by CUDA events with the cull on and
+    off, the wrapper (records + extents + kernel) and the twin by the
+    host clock; what the tie rule changes (tie_order_effect).  Returns the
+    record and gaussian_density_grid's result (grid on the host, center,
+    scale)."""
     from open_diffusiongs_tpu_torch.ops import mesh
+    split = {}
     t0 = time.perf_counter()
-    args, rows, center, scale = density_args(torch, dev, g, res)
-    grid = mesh.density_grid(*args, slab_rows=rows)
-    grid_host = grid.cpu().numpy()
+    grid_host, center, scale = mesh.gaussian_density_grid(
+        g, res, device=dev, stage_seconds=split)
     density_s = time.perf_counter() - t0
-    slab_z, counts = args[1], args[3]
+    args, rows, _, _ = density_args(torch, dev, g, res)
+    lin, slab_z, idx, counts = args[:4]
+    rec = mesh.density_records(idx, *args[4:])
+    grid = mesh.density_kernel(lin, slab_z, counts, rec, rows)
+    grid_all = mesh.density_kernel(lin, slab_z, counts, rec, rows,
+                                   cull=False)
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    grid_counted = mesh.density_kernel(lin, slab_z, counts, rec, rows,
+                                       counters=counters)
+    live, evaluated, tile_tests = counters.tolist()
+    cull_exact = same_bits(torch, grid, grid_all)
+    path_exact = same_bits(torch, grid, torch.from_numpy(grid_host).to(dev))
+    counted_exact = same_bits(torch, grid, grid_counted)
+    ties = tie_order_effect(torch, dev, args, rows, grid,
+                            args[4].cpu().numpy(), args[6].cpu().numpy())
+
     sub = [a[::twin_stride].contiguous() if i in (1, 2, 3) else a
            for i, a in enumerate(args)]
+    rec_sub = rec[::twin_stride].contiguous()
     zs = torch.cat([torch.arange(int(z0), int(z1), device=dev)
                     for z0, z1 in sub[1].tolist()])
+    live_twin = torch.zeros(1, dtype=torch.int64, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = mesh.density_grid_ref(*sub, chunk_pairs=TWIN_CHUNK_PAIRS)
+    ref = mesh.density_grid_ref(*sub, chunk_pairs=TWIN_CHUNK_PAIRS,
+                                live=live_twin)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    grid_s, ref = grid[:, :, zs], ref[:, :, zs]
-    err = (grid_s - ref).abs()
-    over = int((err > DENSITY_TOL["atol"]
-                + DENSITY_TOL["rtol"] * ref.abs()).sum())
-    iso_k, iso_r = iso_crossings(grid_s), iso_crossings(ref)
-    ms = cuda_ms(lambda: mesh.density_grid(*args, slab_rows=rows), iters=5)
-    ms_sub = cuda_ms(lambda: mesh.density_grid(*sub, slab_rows=rows),
-                     iters=5)
+    counters_sub = torch.zeros(3, dtype=torch.int64, device=dev)
+    mesh.density_kernel(lin, sub[1], sub[3], rec_sub, rows,
+                        counters=counters_sub)
+    ref = ref[:, :, zs]
+    over, errs = 0, []
+    for k in (grid, grid_all):
+        err = (k[:, :, zs] - ref).abs()
+        errs.append(float(err.max()))
+        over += int((err > DENSITY_TOL["atol"]
+                     + DENSITY_TOL["rtol"] * ref.abs()).sum())
+    iso_k, iso_r = iso_crossings(grid[:, :, zs]), iso_crossings(ref)
+    ms = cuda_ms(lambda: mesh.density_kernel(lin, slab_z, counts, rec, rows),
+                 iters=5)
+    ms_no_cull = cuda_ms(lambda: mesh.density_kernel(
+        lin, slab_z, counts, rec, rows, cull=False), iters=2)
+    ms_wrapper = cuda_ms(lambda: mesh.density_grid(*args, slab_rows=rows),
+                         iters=5)
+    ms_sub = cuda_ms(lambda: mesh.density_kernel(lin, sub[1], sub[3],
+                                                 rec_sub, rows), iters=5)
     pts = (slab_z[:, 1] - slab_z[:, 0]).long() * res * res
     pairs = int((counts.long() * pts).sum())
-    nbytes = (sum(a.numel() * a.element_size() for a in args)
-              + grid.numel() * 4)
-    t_ops = pairs * DENSITY_OPS_PER_PAIR / PEAK_OPS["f32"]
-    t_exp = pairs / SFU_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    # the all-pairs bound: every pair of the lists, the unpacked inputs
+    # and the grid (the first design's work)
+    old = density_bound(pairs, sum(a.numel() * a.element_size()
+                                   for a in args) + grid.numel() * 4)
+    # these inputs' bound: the live pairs, the packed lists read once and
+    # the grid written once
+    new = density_bound(live, int(counts.long().sum()) * rec.shape[2] * 4
+                        + sum(a.numel() * a.element_size()
+                              for a in (lin, slab_z, counts))
+                        + grid.numel() * 4)
     out = {"view": label, "res": res, "gaussians": int(g.xyz.shape[0]),
            "slabs": int(counts.numel()), "max_list": int(counts.max()),
-           "pairs": pairs, "max_abs_err": float(err.max()),
-           "over_tol": over, "max": float(ref.max()),
+           "list_entries": int(counts.long().sum()),
+           "pairs": pairs, "live_pairs": live, "evaluated_pairs": evaluated,
+           "tile_tests": tile_tests,
+           "live_pairs_twin_slabs": int(counters_sub[0]),
+           "live_pairs_twin": int(live_twin), "max_abs_err": max(errs),
+           "max_abs_err_no_cull": errs[1], "over_tol": over,
+           "cull_bit_identical": cull_exact,
+           "path_bit_identical": path_exact,
+           "counted_bit_identical": counted_exact, "ties": ties,
+           "max": float(ref.max()),
            "iso_crossings": iso_k, "iso_crossings_twin": iso_r,
-           "ms": ms, "plain_ms": plain_ms,
-           "twin_slabs": int(sub[3].numel()),
+           "ms": ms, "ms_no_cull": ms_no_cull, "ms_wrapper": ms_wrapper,
+           "plain_ms": plain_ms, "twin_slabs": int(sub[3].numel()),
            "twin_pairs": int((sub[3].long() * (sub[1][:, 1] - sub[1][:, 0])
                               .long() * res * res).sum()),
            "ms_on_twin_slabs": ms_sub, "density_s": density_s,
-           "bound_ms": 1e3 * max(t_ops, t_exp, t_bytes),
-           "bound_by": ("operations" if max(t_ops, t_exp) >= t_bytes
-                        else "bytes"),
-           "bound_ops_ms": 1e3 * t_ops, "bound_exp_ms": 1e3 * t_exp,
-           "sfu_exp_per_s": SFU_PER_S, "card": card_line()}
+           "density_split": split,
+           "bound_ms": new["ms"], "bound_by": new["by"],
+           "bound_ops_ms": new["ops_ms"], "bound_exp_ms": new["exp_ms"],
+           "bound_bytes_ms": new["bytes_ms"],
+           "bound_all_pairs_ms": old["ms"],
+           "bound_all_pairs_by": old["by"], "sfu_exp_per_s": SFU_PER_S,
+           "card": card_line()}
     print(f"[15a density, {label}] {json.dumps(out)}", flush=True)
+    if not (cull_exact and path_exact and counted_exact):
+        raise AssertionError(f"density kernel ({label}): the culled grid "
+                             f"is not bit-identical to the unculled one "
+                             f"({cull_exact}), to gaussian_density_grid's "
+                             f"({path_exact}) or to the counted launch's "
+                             f"({counted_exact})")
+    if abs(int(counters_sub[0]) - int(live_twin)) > (LIVE_PAIRS_REL
+                                                     * int(live_twin)):
+        raise AssertionError(f"live pairs ({label}): kernel "
+                             f"{int(counters_sub[0])} vs twin "
+                             f"{int(live_twin)} on the twin's slabs")
     if over or not bool(torch.isfinite(grid).all()):
         raise AssertionError(f"density kernel vs twin ({label}): {over} "
                              f"points over {DENSITY_TOL}")
@@ -2828,14 +2974,14 @@ def mesh_record(label: str, n_gaussians: int, verts, tris, split: dict,
 
 
 def phase_mesh_export(torch, dev, system, g512, field512,
-                      density512_s: float) -> dict:
+                      density512_split: dict) -> dict:
     """15b: the ball's mesh at 256 (tests/test_mesh.py's bars; the
     kernel's grid against the twin's); phase 5's input through
     pipe.batch(extract_mesh=True) with phase 5's system (parked on the
     host since phase 7), with extract_mesh's host split; and phase 11's
     trained-statistics 512^2 Gaussians (not sampled again), meshed by
     mesh_from_grid from 15a's density field of them (extract_mesh's
-    second step; its density seconds are 15a's)."""
+    second step; its density split is 15a's)."""
     import numpy as np
     from open_diffusiongs_tpu_torch.ops import mesh
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
@@ -2894,12 +3040,17 @@ def phase_mesh_export(torch, dev, system, g512, field512,
                      gc_seconds=gc_clock.seconds, launches=launches,
                      unpark_s=unpark_s)
         print(f"[15b mesh, {RES}^2 asset] {json.dumps(asset)}", flush=True)
-        split = {"density": density512_s}
+        split = dict(density512_split)
         verts, tris = mesh.mesh_from_grid(*field512, stage_seconds=split)
         trained = mesh_record(f"{RES_512}^2 trained statistics",
                               int(g512.xyz.shape[0]), verts, tris, split, tmp)
         print(f"[15b mesh, {RES_512}^2 trained statistics] "
               f"{json.dumps(trained)}", flush=True)
+        print("[15b density split] " + json.dumps({
+            view: {k: r["stages_s"][k] for k in DENSITY_STAGES}
+            for view, r in ((f"{RES}^2 asset", asset),
+                            (f"{RES_512}^2 trained", trained))}
+            | {"card": card_line()}), flush=True)
     return {"ball": ball, "asset": asset, "trained_512": trained}
 
 
@@ -3051,7 +3202,7 @@ def phase_serving(torch, dev, system, g256, bf16_renders, g512) -> dict:
 
     out["density"], field512 = part("density", phase_density, g256, g512)
     part("mesh", phase_mesh_export, system, g512, field512,
-         out["density"][2]["density_s"])
+         out["density"][2]["density_split"])
     part("int8", phase_int8, bf16_renders)
     part("u2net_cli", phase_u2net_cli)
     out["seconds"] = seconds
@@ -3247,11 +3398,16 @@ def main() -> int:
          "ms": density["ms"], "plain_ms": density["plain_ms"],
          **roof(density), "library_ms": None,
          # the twin runs on every 8th slab: its pairs, and the kernel's
-         # time on the same slabs, beside the whole grid's
+         # time on the same slabs, beside the whole grid's; the bound
+         # counts the live pairs, the all-pairs bound every pair
          "pairs": density["pairs"], "plain_pairs": density["twin_pairs"],
          "ms_on_plain_slabs": density["ms_on_twin_slabs"],
-         "ms_shell_128": serving["density"][0]["ms"],
-         "ms_trained_512": serving["density"][2]["ms"],
+         **{f"{k}{suffix}": c[k]
+            for c, suffix in zip(serving["density"],
+                                 ("_shell_128", "", "_trained_512"))
+            for k in ("ms", "ms_no_cull", "live_pairs", "tile_tests",
+                      "bound_ms", "bound_all_pairs_ms")
+            if suffix or k not in ("ms", "bound_ms")},
          "launches_cli": serving["u2net_cli"]["cli_density_launches"]},
         # the general route's training pair, at b = 4, L = 4098, 16 heads
         # of 64 (and of 48 beside); launches in phase 16c's three steps

@@ -105,7 +105,7 @@ def main(argv=None) -> Dict[str, Any]:
 
     from . import _register_builtins, find, select_device
     from .parallel.mesh import check_parallelism
-    from .pipeline import StageClock
+    from .utils.timing import StageClock
     from .parallel.train_step import init_train_state, make_optimizer
     from .systems.builder import build_optimizer_config, build_system
     from .utils.checkpoint import CheckpointManager
@@ -355,7 +355,7 @@ def validate(cfg, args, system, state, dataset, device, record):
 
     from .data.loader import collate
     from .parallel.mesh import allreduce_metric_sums, eval_shard_indices
-    from .pipeline import StageClock
+    from .utils.timing import StageClock
     from .systems import eval_utils
     from .utils.saving import chw_to_hwc, save_image_grid
 

@@ -161,7 +161,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "splash":
         raise NotImplementedError(
             "attn_impl 'splash' is a JAX library kernel the port does not "
-            "reproduce (ROADMAP Queue 1 #15)")
+            "reproduce (ROADMAP Queue 1 item 7)")
     if impl == "xla":
         return dot_product_attention(q, k, v)
     return flash_full_attention(q, k, v)   # raises for d > 64 (JAX: splash)

@@ -76,9 +76,9 @@ SIGNATURES = {
     # packed, idx, counts, n_end (or None), num_tiles, k, tiles_x, t_fin,
     # acc_c, acc_d, d_tfin, d_accc, d_accd, dg, stream
     "odgs_blend_bwd": [_P] * 4 + [_I] * 3 + [_P] * 8,
-    # lin, slab_z, idx, counts, xyz, inv, opa, grid, res, n_slabs,
-    # max_per_block, slab_rows, stream
-    "odgs_density_grid": [_P] * 8 + [_I] * 4 + [_P],
+    # lin, slab_z, counts, rec, grid, res, n_slabs, max_per_block,
+    # slab_rows, cull, counters (or None), stream
+    "odgs_density_grid": [_P] * 5 + [_I] * 5 + [_P, _P],
 }
 
 

@@ -7,11 +7,14 @@ gradient_clip_val 0.5 and EMA decay 0.9999 (configs/diffusionGS_rel.yaml).
 One step is: loss -> backward -> clip -> update -> EMA of the new params.
 
 `Optimizer` reproduces the JAX package's optax chain
-MultiSteps(chain(clip_by_global_norm, adamw | adam | sgd)) operation for
-operation, where torch's own classes differ from it:
-  * clipping scales by max/norm only when norm >= max, dividing by the
-    norm itself (torch's clip_grad_norm_ divides by norm + 1e-6); the
-    gradients are scaled in place (.grad, or the accumulator);
+MultiSteps(chain(clip_by_global_norm, adamw | adam | sgd)), where torch's
+own classes differ from it:
+  * clipping scales by max/norm only when norm >= max, with the norm
+    itself (torch's clip_grad_norm_ divides by norm + 1e-6); the gradients
+    are multiplied in place by clip / norm (.grad, or the accumulator),
+    where optax divides by the norm and then multiplies by the clip, so
+    the two agree within test_optimizer_matches_optax_chain's atol 1e-7
+    and not bit for bit;
   * the learning rate is the schedule at the count of updates already
     applied (0 on the first update);
   * AdamW decays the weights inside the update, lr * (m̂/(√v̂ + eps) + wd·p),

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,6 +23,7 @@ from PIL import Image
 from .ops.gaussians import NumpyGaussians
 from .utils.ply import save_gaussians_ply
 from .utils.saving import turntable_cameras
+from .utils.timing import StageClock
 
 
 @dataclasses.dataclass
@@ -258,25 +258,3 @@ class DiffusionGSPipeline:
                 stats=stats, mesh=mesh, mesh_seconds=mesh_seconds))
         return results
 
-
-class StageClock:
-    """Adds the host seconds since the previous edge to `seconds[name]` at
-    each `stage(name)`, synchronizing a CUDA device at every edge; does
-    nothing when `seconds` is None."""
-
-    def __init__(self, seconds: Optional[Dict[str, float]], device):
-        self.seconds = seconds
-        self.cuda = torch.device(device).type == "cuda"
-        self.t = self._now()
-
-    def _now(self) -> float:
-        if self.seconds is not None and self.cuda:
-            torch.cuda.synchronize()
-        return time.perf_counter()
-
-    def stage(self, name: str) -> None:
-        if self.seconds is None:
-            return
-        t = self._now()
-        self.seconds[name] = self.seconds.get(name, 0.0) + t - self.t
-        self.t = t

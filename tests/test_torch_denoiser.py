@@ -217,7 +217,7 @@ def test_subset_attention_matches_jax(impl):
             impl="xla"))
         got = ttr.subset_attention(tq, tk, tv, subset_size=s_, impl=impl)
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 #15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ttr.fused_attention(tq, tk, tv, "splash")
 
 

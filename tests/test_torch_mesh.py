@@ -6,7 +6,14 @@ native/libmesher.so.
   `gaussian_density_grid` against JAX's at resolutions 32 and 64, one case
   capped (`max_per_block` below the candidates); atol 1e-6 + rtol 1e-5
   (JAX sums a slab's terms in XLA's order, the twin in torch's), and each
-  slab's selected Gaussians equal to the rows JAX's `eval_block` receives;
+  slab's selected Gaussians (`slab_select`'s, the path's) equal to the
+  rows JAX's `eval_block` receives;
+* the path's slab selection (`slab_select`, plain torch, here on CPU
+  tensors) equal to the numpy `slab_tables` table for table, with equal
+  opacities across the cap keeping the lower indices; the packed records;
+* the cull's extents conservative for the twin's f32 power on
+  adversarial Gaussians (discs, needles, near-singular, det-clamped,
+  non-positive-definite, a seeded sweep);
 * every native wrapper bit-identical to JAX's on the same inputs;
 * the port's steps after the density field, fed JAX's grid, give JAX's
   verts and tris exactly;
@@ -102,10 +109,12 @@ def test_density_grid_matches_jax(monkeypatch, res, max_per_block,
     np.testing.assert_allclose(got, want, **GRID_TOL)
     assert want.max() > 0.5
 
-    # the slabs' selections: JAX's eval_block gets the gathered rows
+    # the path's selections: JAX's eval_block gets the gathered rows
     xyz_n, inv, opa, _, _ = mesh.density_inputs(NumpyGaussians(*fields))
-    _, slab_z, idx, counts, _ = mesh.slab_tables(
-        xyz_n, opa, res, max_per_block=max_per_block)
+    _, slab_z, idx, counts, _ = (
+        x.numpy() if torch.is_tensor(x) else x for x in mesh.slab_select(
+            torch.from_numpy(xyz_n), torch.from_numpy(opa), res,
+            max_per_block=max_per_block))
     live = np.nonzero(counts)[0]
     assert len(live) == len(calls) >= 1     # res 32: one slab of 32 rows
     if max_per_block < 8192:
@@ -115,6 +124,145 @@ def test_density_grid_matches_jax(monkeypatch, res, max_per_block,
         assert bmask.sum() == n and bmask[:n].all()
         np.testing.assert_array_equal(bxyz[:n], xyz_n[idx[s, :n]])
         np.testing.assert_array_equal(bopa[:n], opa[idx[s, :n]])
+
+
+@pytest.mark.parametrize("res,max_per_block,log_scale,tied", [
+    (32, 8192, (-3.0, -2.0), False),
+    (64, 8192, (-3.5, -2.5), False),
+    (64, 40, (-3.0, -2.0), False),
+    (64, 40, (-3.0, -2.0), True),      # equal opacities across the cap
+])
+def test_slab_select_equals_slab_tables(res, max_per_block, log_scale, tied):
+    """The path's selection (plain torch, here on CPU tensors, its mask
+    made a few slabs at a time) equals the numpy loop table for table; the
+    packed records hold each list's rows."""
+    fields = list(_fields(400, seed=res + max_per_block, log_scale=log_scale))
+    if tied:   # four raw opacities: ~100 Gaussians share each
+        fields[4] = np.random.default_rng(5).choice(
+            np.float32([-1.0, 0.0, 0.5, 2.0]), (400, 1))
+    xyz_n, inv, opa, _, _ = mesh.density_inputs(NumpyGaussians(*fields))
+    want = mesh.slab_tables(xyz_n, opa, res, max_per_block=max_per_block)
+    got = mesh.slab_select(torch.from_numpy(xyz_n), torch.from_numpy(opa),
+                           res, max_per_block=max_per_block,
+                           chunk_elems=3 * 400)
+    for w, g in zip(want[:4], got[:4]):
+        assert g.dtype == torch.from_numpy(w).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert got[4] == want[4]
+    _, slab_z, idx, counts, _ = want
+    if max_per_block < 8192:
+        assert counts.max() == max_per_block
+    if tied:   # the lowest kept level keeps its lowest indices
+        lin = np.linspace(-1, 1, res, dtype=np.float32)
+        straddles = 0
+        for s, (z0, z1) in enumerate(slab_z):
+            lo = np.float32([lin[0], lin[0], lin[z0]]) - np.float32(0.1)
+            hi = np.float32([lin[-1], lin[-1], lin[z1 - 1]]) + np.float32(0.1)
+            members = np.nonzero(((xyz_n > lo) & (xyz_n < hi)).all(-1))[0]
+            if len(members) <= max_per_block:
+                continue
+            kept = idx[s, :counts[s]]
+            level = opa[kept].min()
+            tied_members = members[opa[members] == level]
+            tied_kept = kept[opa[kept] == level]
+            np.testing.assert_array_equal(
+                tied_kept, tied_members[:len(tied_kept)])
+            straddles += len(tied_kept) < len(tied_members)
+        assert straddles >= 1
+
+    xyz_t, inv_t, opa_t = (torch.from_numpy(x) for x in (xyz_n, inv, opa))
+    rec = mesh.density_records(got[2], xyz_t, inv_t, opa_t)
+    table = torch.cat([xyz_t, opa_t[:, None], inv_t,
+                       mesh.cull_extents(inv_t)], 1)
+    assert rec.shape == (len(counts), max_per_block, mesh.RECORD_FLOATS)
+    for s, n in enumerate(counts):
+        torch.testing.assert_close(rec[s, :n], table[idx[s, :n]],
+                                   rtol=0, atol=0)
+
+
+def _rotations(rng, n):
+    q, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    return q
+
+
+def _cull_family(family, n, seed):
+    """(mu [n, 3], inv [n, 6]) f32 of adversarial Gaussians, through
+    density_inputs (its det clamp included) unless the family is a
+    non-positive-definite inverse built directly."""
+    rng = np.random.default_rng(seed)
+    if family == "not_pd":
+        lam = rng.uniform(1.0, 1e3, (n, 3)) * np.float64([1, 1, -1])
+        r = _rotations(rng, n)
+        q = np.einsum("nij,nj,nkj->nik", r, lam, r)
+        inv = q[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+        return (rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32),
+                inv.astype(np.float32))
+    base = rng.uniform(-4.5, -2.5, (n, 1))
+    logs = {"disc": base + [0.0, 0.0, -4.6],         # 100:1 in sigma
+            "needle": base + [0.0, -4.6, -4.6],
+            "near_singular": base + [0.0, 0.0, -9.2],  # 1e4:1
+            "det_clamped": np.full((n, 3), -13.0),     # det(cov) < 1e-24
+            "sweep": rng.uniform(-7.0, -1.0, (n, 3))}[family]
+    g = NumpyGaussians(rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32),
+                       np.zeros((n, 1, 3), np.float32),
+                       logs.astype(np.float32),
+                       rng.normal(size=(n, 4)).astype(np.float32),
+                       np.zeros((n, 1), np.float32))
+    xyz_n, inv, _, _, _ = mesh.density_inputs(g)
+    return xyz_n, inv.astype(np.float32)
+
+
+def _twin_power(d, inv):
+    """The twin's f32 power of offsets d [..., n, 3] under inv [n, 6]."""
+    d = torch.from_numpy(np.ascontiguousarray(d, np.float32))
+    return mesh.density_power(d[..., 0], d[..., 1], d[..., 2],
+                              torch.from_numpy(inv)).numpy()
+
+
+@pytest.mark.parametrize("family", ["disc", "needle", "near_singular",
+                                    "det_clamped", "not_pd", "sweep"])
+def test_cull_extents_are_conservative(family):
+    """Every offset that a Gaussian's cull extents exclude has a twin f32
+    power below -104: on a grid (each point a tile box of one point), and
+    at the tightest offsets, just past an extent, where dᵀQd is least."""
+    n = 256 if family == "sweep" else 64
+    mu, inv = _cull_family(family, n, seed=len(family))
+    ext = mesh.cull_extents(torch.from_numpy(inv)).numpy()
+    assert ext.shape == (n, 2) and ext.dtype == np.float32
+    finite = np.isfinite(ext).all(1)
+    if family in ("not_pd", "near_singular"):
+        assert not finite.any()       # never culled
+        return
+    if family == "sweep":
+        assert 0.5 < finite.mean() < 1.0
+    else:
+        assert finite.all()
+    if family == "det_clamped":       # the clamp widened every Gaussian
+        assert inv[:, [0, 3, 5]].max() < 1e6
+
+    lin = np.linspace(-1.0, 1.0, 24, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(lin[::4], lin, lin, indexing="ij")
+    pts = np.stack([xx, yy, zz], -1).reshape(-1, 1, 3)
+    d = pts - mu[None]                                  # f32, as the kernel
+    power = _twin_power(d, inv)
+    culled = (np.abs(d[..., :2]) > ext[None]).any(-1)
+    assert culled.any() and (~culled).any()
+    assert (power[culled] < mesh.CULL_POWER).all(), power[culled].max()
+
+    q = inv.astype(np.float64)[:, [0, 1, 2, 1, 3, 4, 2, 4, 5]].reshape(-1, 3,
+                                                                      3)
+    sig = np.linalg.inv(q[finite])
+    tightest = []
+    for axis in (0, 1):
+        for sign in (1.0, -1.0):
+            t = sign * np.nextafter(ext[finite, axis], np.float32(np.inf))
+            probe = t[:, None] * sig[:, :, axis] / sig[:, axis, axis][:, None]
+            probe = probe.astype(np.float32)
+            probe[:, axis] = t
+            p = _twin_power(probe, inv[finite])
+            assert (p < mesh.CULL_POWER).all(), (axis, p.max())
+            tightest.append(p.max())
+    assert max(tightest) > 1.01 * mesh.CULL_POWER      # the extents are tight
 
 
 def test_density_grid_runs_its_twin_on_cpu_and_raises_elsewhere():
@@ -188,7 +336,10 @@ def test_extract_mesh_end_to_end(tmp_path):
                                     device="cpu", stage_seconds=stages)
     assert len(verts) > 50 and len(tris) > 50
     assert np.linalg.norm(verts, axis=1).max() < 0.6
-    assert "density" in stages and len(stages) == 5
+    assert sorted(stages) == ["clean", "decimate", "density_copy",
+                              "density_field", "density_inputs",
+                              "density_selection", "largest_component",
+                              "marching_tets"]
     path = str(tmp_path / "m.obj")
     mesh.save_mesh_obj(path, verts, tris)
     assert open(path).readline().startswith("v ")
