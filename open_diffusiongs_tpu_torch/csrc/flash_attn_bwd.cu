@@ -10,9 +10,13 @@
 //   dq = (dh^-1/2) * dS . K,  dk = ln2 * dS^T . q~,  dv = P^T . dO
 // f32 accumulation; P and dS are rounded to bf16 as the tensor cores' A
 // operand (the TPU kernels cast them to the input dtype the same way).
-// Keys >= l_real are excluded (TMA reads their K/V rows as 0, P forced to
-// 0); q rows >= l_real contribute nothing (TMA reads their q~/dO rows as 0,
-// P and dS forced to 0); every output row >= l_real is written as exactly 0.
+// Keys >= lk_real are excluded (TMA reads their K/V rows as 0, P forced to
+// 0); q rows >= lq_real contribute nothing (TMA reads their q~/dO rows as 0,
+// P and dS forced to 0); dq rows >= lq_real and dk / dv rows >= lk_real are
+// written as exactly 0.  The two extents are separate for the ring steps of
+// sequence parallelism (parallel/ring.py), where a query shard meets a key
+// shard with another number of real rows; one extent l_real for both is
+// lq_real = lk_real = l_real.
 // The caller forms q~ once (ops/attention.py, the `_prescaled_q` rule), so
 // TMA reads it as it is.
 //
@@ -32,7 +36,8 @@
 //   * the block's resident tiles are loaded once, the streamed 64-row tiles
 //     run through a ring of NSTAGE stages with full / empty mbarriers;
 //     the tensor maps are those of the forward (3-D {h*dh, rows, b}, row
-//     extent l_real, swizzle = the row's width), plus 2-D maps of lse and
+//     extent lq_real for q~ / dO and lk_real for K / V, swizzle = the row's
+//     width), plus 2-D maps of lse and
 //     delta laid out [b*h, pitch] so a q tile's 64 values are one box;
 //   * every operand orientation comes from wgmma's transpose bit, never
 //     from a transposed copy in shared memory:
@@ -53,7 +58,12 @@
 //     also overlaps the other's products.
 // Inputs q~/k/v may be column slices of one fused qkv projection, and the
 // outputs dq/dk/dv column slices of one fused [b, Lp, 3*h*dh] gradient:
-// each is addressed by its own batch and row strides.
+// each is addressed by its own batch and row strides.  The outputs are
+// bf16, or f32 with `out_f32`: a ring step of sequence parallelism
+// (parallel/ring.py) yields one part of dq (its keys' slice) and of dk / dv
+// (its queries' shard), and the parts are summed across steps before the
+// one rounding to bf16.  Within one slice's keys, Σ_j dS_ij is not 0, so
+// parts rounded to bf16 first would cancel away their bits.
 
 #include <math.h>
 #include <stdint.h>
@@ -76,11 +86,12 @@ constexpr float LN2 = 0.6931471805599453f;
 __host__ __device__ inline int stats_pitch(int lp) { return (lp + 3) / 4 * 4; }
 
 struct BwdParams {
-  CUtensorMap tq, tdo, tk, tv;   // boxes of [ROWS, dh], rows < l_real
-  CUtensorMap tlse, tdlt;        // boxes of [1, ROWS], columns < l_real
+  CUtensorMap tq, tdo;           // boxes of [ROWS, dh], rows < lq_real
+  CUtensorMap tk, tv;            // boxes of [ROWS, dh], rows < lk_real
+  CUtensorMap tlse, tdlt;        // boxes of [1, ROWS], columns < lq_real
   const float *lse, *delta;      // [b*h, pitch] f32
-  __nv_bfloat16 *dq, *dk, *dv;
-  int lp, h, l_real, pitch;
+  void *dq, *dk, *dv;            // bf16, or f32 with out_f32
+  int lp, h, lq_real, lk_real, pitch, out_f32;
   float dq_scale;                // dh^-1/2
   long long dq_sb, dq_sl, dk_sb, dk_sl, dv_sb, dv_sl;
 };
@@ -114,12 +125,14 @@ __device__ __forceinline__ uint32_t& frag_of(uint32_t (&f)[ROWS / 16][4],
 }
 
 // Write this thread's rows row0, row0 + 8 of a [64, DH] accumulator, scaled
-// (rows >= l_real as 0, rows >= lp skipped).
+// (rows >= extent as 0, rows >= lp skipped), at element `off` of `out` (the
+// (batch, head) column block), as bf16 or, with `f32`, f32.
 template <int DH>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sl,
-                                           int row0, int lp, int l_real,
+__device__ __forceinline__ void store_rows(void* out, long long off,
+                                           long long sl, int row0, int lp,
+                                           int extent,
                                            const float (&acc)[DH / 2],
-                                           float scale, int t4) {
+                                           float scale, int t4, bool f32) {
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     const int c = n * 8 + 2 * t4;
@@ -127,10 +140,16 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sl,
     for (int half = 0; half < 2; ++half) {
       const int r = row0 + 8 * half;
       if (r >= lp) continue;
-      const bool real = r < l_real;
-      *reinterpret_cast<uint32_t*>(out + (long long)r * sl + c) =
-          pack_bf16x2(real ? acc[4 * n + 2 * half] * scale : 0.f,
-                      real ? acc[4 * n + 2 * half + 1] * scale : 0.f);
+      const bool real = r < extent;
+      const float a = real ? acc[4 * n + 2 * half] * scale : 0.f;
+      const float b = real ? acc[4 * n + 2 * half + 1] * scale : 0.f;
+      const long long e = off + (long long)r * sl + c;
+      if (f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + e) =
+            make_float2(a, b);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + e) =
+            pack_bf16x2(a, b);
     }
   }
 }
@@ -158,10 +177,10 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     const long long o = (long long)(bi * p.h + head) * p.pitch + r;
-    lse_r[half] = r < p.l_real ? p.lse[o] : 0.f;
-    dlt_r[half] = r < p.l_real ? p.delta[o] : 0.f;
+    lse_r[half] = r < p.lq_real ? p.lse[o] : 0.f;
+    dlt_r[half] = r < p.lq_real ? p.delta[o] : 0.f;
   }
-  const bool real_r[2] = {r0 < p.l_real, r0 + 8 < p.l_real};
+  const bool real_r[2] = {r0 < p.lq_real, r0 + 8 < p.lq_real};
   float dq[DH / 2], sacc[ROWS / 2], pacc[ROWS / 2];
   typedef uint32_t Frags[ROWS / 16][4];
   Frags ds0, ds1;   // dS of two tiles
@@ -205,7 +224,7 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           // exp2(-inf) = 0 drops the pad keys and rows without a branch
-          const float pv = exp2f((key + c < p.l_real && real_r[half])
+          const float pv = exp2f((key + c < p.lk_real && real_r[half])
                                      ? sacc[4 * n + e + c] - lse_r[half]
                                      : -INFINITY);
           ds[c] = pv * (pacc[4 * n + e + c] - dlt_r[half]);
@@ -250,8 +269,8 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
     last(j, ds0);
   }
   fence_regs(dq);
-  store_rows<DH>(p.dq + bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
-                 p.l_real, dq, p.dq_scale, t4);
+  store_rows<DH>(p.dq, bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
+                 p.lq_real, dq, p.dq_scale, t4, p.out_f32);
 }
 
 template <int DH>
@@ -262,8 +281,8 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
   const int q0 = blockIdx.x * BLOCK, head = blockIdx.y, bi = blockIdx.z;
   const int wg = threadIdx.x / WG;
   // consumers whose rows hold a real q row; the others only write zeros
-  const int n_active = q0 >= p.l_real ? 0 : q0 + ROWS < p.l_real ? 2 : 1;
-  const int n_kt = n_active > 0 ? (p.l_real + ROWS - 1) / ROWS : 0;
+  const int n_active = q0 >= p.lq_real ? 0 : q0 + ROWS < p.lq_real ? 2 : 1;
+  const int n_kt = n_active > 0 ? (p.lk_real + ROWS - 1) / ROWS : 0;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < NSTAGE; ++st) {
@@ -294,13 +313,13 @@ flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
     setmaxnreg_inc<232>();
     if (wg < n_active) {
       dq_consumer<DH>(p, s, wg, q0, head, bi, n_kt);
-    } else {   // every row of this warpgroup is >= l_real: write zeros
+    } else {   // every row of this warpgroup is >= lq_real: write zeros
       const int tid = threadIdx.x % WG;
       const int r0 = q0 + wg * ROWS + (tid / 32) * 16 + (tid % 32) / 4;
       float zero[DH / 2];
       zero_acc<DH>(zero);
-      store_rows<DH>(p.dq + bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
-                     p.l_real, zero, 0.f, tid % 4);
+      store_rows<DH>(p.dq, bi * p.dq_sb + head * DH, p.dq_sl, r0, p.lp,
+                     p.lq_real, zero, 0.f, tid % 4, p.out_f32);
     }
   }
 }
@@ -369,7 +388,7 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
         float pv[2], ds[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          pv[c] = exp2f(q0 + col + c < p.l_real
+          pv[c] = exp2f(q0 + col + c < p.lq_real
                             ? sacc[4 * n + e + c] - lse_c[c] : -INFINITY);
           ds[c] = pv[c] * (pacc[4 * n + e + c] - dlt_c[c]);   // dS^T
         }
@@ -415,10 +434,10 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
   }
   fence_regs(dk);
   fence_regs(dv);
-  store_rows<DH>(p.dk + bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
-                 p.l_real, dk, LN2, t4);
-  store_rows<DH>(p.dv + bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
-                 p.l_real, dv, 1.f, t4);
+  store_rows<DH>(p.dk, bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
+                 p.lk_real, dk, LN2, t4, p.out_f32);
+  store_rows<DH>(p.dv, bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
+                 p.lk_real, dv, 1.f, t4, p.out_f32);
 }
 
 template <int DH>
@@ -428,8 +447,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
   DkvSmem<DH>& s = smem_storage<DkvSmem<DH>>(smem_raw);
   const int k0 = blockIdx.x * BLOCK, head = blockIdx.y, bi = blockIdx.z;
   const int wg = threadIdx.x / WG;
-  const int n_active = k0 >= p.l_real ? 0 : k0 + ROWS < p.l_real ? 2 : 1;
-  const int n_qt = n_active > 0 ? (p.l_real + ROWS - 1) / ROWS : 0;
+  const int n_active = k0 >= p.lk_real ? 0 : k0 + ROWS < p.lk_real ? 2 : 1;
+  const int n_qt = n_active > 0 ? (p.lq_real + ROWS - 1) / ROWS : 0;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < NSTAGE; ++st) {
@@ -463,15 +482,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
     setmaxnreg_inc<232>();
     if (wg < n_active) {
       dkv_consumer<DH>(p, s, wg, k0, head, bi, n_qt);
-    } else {   // every key of this warpgroup is >= l_real: write zeros
+    } else {   // every key of this warpgroup is >= lk_real: write zeros
       const int tid = threadIdx.x % WG;
       const int r0 = k0 + wg * ROWS + (tid / 32) * 16 + (tid % 32) / 4;
       float zero[DH / 2];
       zero_acc<DH>(zero);
-      store_rows<DH>(p.dk + bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
-                     p.l_real, zero, 0.f, tid % 4);
-      store_rows<DH>(p.dv + bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
-                     p.l_real, zero, 0.f, tid % 4);
+      store_rows<DH>(p.dk, bi * p.dk_sb + head * DH, p.dk_sl, r0, p.lp,
+                     p.lk_real, zero, 0.f, tid % 4, p.out_f32);
+      store_rows<DH>(p.dv, bi * p.dv_sb + head * DH, p.dv_sl, r0, p.lp,
+                     p.lk_real, zero, 0.f, tid % 4, p.out_f32);
     }
   }
 }
@@ -511,13 +530,13 @@ int prepare(BwdParams& p, const void* q, const void* k, const void* v,
             long long v_sb, long long v_sl, long long do_sb, long long do_sl) {
   const int width = p.h * DH;
   const bool ok =
-      make_map_bf16<DH>(&p.tq, q, width, p.l_real, b, q_sl, q_sb, ROWS) &&
-      make_map_bf16<DH>(&p.tdo, dout, width, p.l_real, b, do_sl, do_sb,
+      make_map_bf16<DH>(&p.tq, q, width, p.lq_real, b, q_sl, q_sb, ROWS) &&
+      make_map_bf16<DH>(&p.tdo, dout, width, p.lq_real, b, do_sl, do_sb,
                         ROWS) &&
-      make_map_bf16<DH>(&p.tk, k, width, p.l_real, b, k_sl, k_sb, ROWS) &&
-      make_map_bf16<DH>(&p.tv, v, width, p.l_real, b, v_sl, v_sb, ROWS) &&
-      make_map_f32(&p.tlse, lse, p.l_real, p.pitch, b * p.h, ROWS) &&
-      make_map_f32(&p.tdlt, delta, p.l_real, p.pitch, b * p.h, ROWS);
+      make_map_bf16<DH>(&p.tk, k, width, p.lk_real, b, k_sl, k_sb, ROWS) &&
+      make_map_bf16<DH>(&p.tv, v, width, p.lk_real, b, v_sl, v_sb, ROWS) &&
+      make_map_f32(&p.tlse, lse, p.lq_real, p.pitch, b * p.h, ROWS) &&
+      make_map_f32(&p.tdlt, delta, p.lq_real, p.pitch, b * p.h, ROWS);
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -529,29 +548,33 @@ int prepare(BwdParams& p, const void* q, const void* k, const void* v,
 // (batch, row) strides in elements, last dimension contiguous, base
 // 16-byte aligned, q/k/v/dout strides multiples of 8 elements (TMA;
 // checked by the Python wrapper).  lse and delta: f32 [b, h, pitch] with
-// pitch = lp rounded up to a multiple of 4 (stats_pitch).  Rows >= l_real
-// of every input are never read.  `scale` = dh^-1/2 * log2 e, the
-// forward's.
+// pitch = lp rounded up to a multiple of 4 (stats_pitch).  Rows >= lq_real
+// of q / dout / lse / delta and rows >= lk_real of k / v are never read
+// (1 <= lk_real, lq_real <= lp).  `scale` = dh^-1/2 * log2 e, the
+// forward's.  dq/dk/dv are f32 (strides in f32 elements) when out_f32 != 0.
 // dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
-    int lp, int h, int dh, int l_real, float scale, long long q_sb,
-    long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-    long long v_sl, long long do_sb, long long do_sl, long long dq_sb,
-    long long dq_sl, long long dk_sb, long long dk_sl, long long dv_sb,
-    long long dv_sl, void* stream) {
+    int lp, int h, int dh, int lk_real, int lq_real, float scale,
+    long long q_sb, long long q_sl, long long k_sb, long long k_sl,
+    long long v_sb, long long v_sl, long long do_sb, long long do_sl,
+    long long dq_sb, long long dq_sl, long long dk_sb, long long dk_sl,
+    long long dv_sb, long long dv_sl, int out_f32, void* stream) {
   if (b == 0 || lp == 0 || h == 0) return 0;
-  if (l_real < 1 || l_real > lp) return static_cast<int>(cudaErrorInvalidValue);
+  if (lk_real < 1 || lk_real > lp || lq_real < 1 || lq_real > lp)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.out_f32 = out_f32 != 0;
   p.lp = lp;
   p.h = h;
-  p.l_real = l_real;
+  p.lq_real = lq_real;
+  p.lk_real = lk_real;
   p.pitch = stats_pitch(lp);
   p.dq_scale = scale * LN2;
   p.dq_sb = dq_sb; p.dq_sl = dq_sl; p.dk_sb = dk_sb; p.dk_sl = dk_sl;

@@ -5,21 +5,31 @@
 //   q/k/v [b, Lp, h*dh] bf16, head h in columns h*dh .. h*dh+dh-1;
 //   q is pre-scaled by dh^-1/2 * log2(e) in f32 and rounded back to bf16;
 //   the online softmax runs in base 2 (exp2f) with f32 running max / sum;
-//   keys >= l_real are excluded (TMA reads their K and V rows as 0, and
+//   keys >= lk_real are excluded (TMA reads their K and V rows as 0, and
 //   their scores are set to -inf, so pad-row garbage cannot leak);
 //   P is rounded to bf16 for P.V, the row sum takes the unrounded f32 P;
-//   output in bf16, pad rows (>= l_real) are garbage like on the TPU.
+//   output in bf16 for every row < Lp (rows >= lq_real are the caller's
+//   pad rows: computed like the others, and thrown away).
 // With a non-null `lse` (the training forward, body _fwd_kernel_packed_stats
-// :212) it also writes the base-2 log-sum-exp m + log2(l) of every real row
-// into lse [b, Lp, h] f32 (pad rows get 0): the one forward fact the
-// backward (flash_attn_bwd.cu) rebuilds P from.
+// :212) it also writes the base-2 log-sum-exp m + log2(l) of every row
+// < lq_real into lse [b, Lp, h] f32 (rows >= lq_real get 0): the one
+// forward fact the backward (flash_attn_bwd.cu) rebuilds P from.
+// With `o_f32` o is written in f32 instead, the same values before their
+// rounding: a ring step's output (parallel/ring.py), merged with the other
+// steps' before its one rounding to bf16, as one launch over every key
+// rounds it once.
+// The query and key extents are separate because a ring step of sequence
+// parallelism (parallel/ring.py) attends a full query shard to the tail
+// shard's keys, or the tail's queries to a full shard's keys; one extent
+// l_real for both is lq_real = lk_real = l_real, as on the TPU (which writes
+// the lse of every row and masks keys only).
 // With `SMAX` (body _fwd_kernel_packed_smax :146-210, flash_mha_packed(
 // scalar_max=True)) the running max is one scalar per (64-row q tile, head)
 // instead of one per row: each key tile's max is reduced over the
 // warpgroup's 64 rows (shuffles within each row quad and across the warp,
 // then shared memory and a 128-thread named barrier over its 4 warps).  As
 // on the TPU, the zeroed pad keys (score 0) count toward that max when
-// Lp > l_real, and so do the tile's pad rows (< Lp); rows past Lp are not
+// Lp > lk_real, and so do the tile's pad rows (< Lp); rows past Lp are not
 // part of the tile.  A row whose scores all sit > ~126 below the tile max
 // underflows to 0 (denominator clamped at 1e-30, as :207).
 // The TPU kernel's V "ones column" (an MXU trick for the row sum) is not
@@ -40,7 +50,7 @@
 //     mbarrier.  The tensor maps are 3-D {h*dh, rows, b} with the caller's
 //     row and batch strides, so q/k/v may be column slices of one fused qkv
 //     projection; they are encoded on the host at every launch.  K/V maps
-//     end at row l_real, so TMA zero-fills the keys >= l_real.  Each row of
+//     end at row lk_real, so TMA zero-fills the keys >= lk_real.  Each row of
 //     a tile is one swizzle span (128/64/32 B at dh 64/32/16).
 //   * Consumers (warpgroups 0 and 1, 64 q rows each; setmaxnreg 232): the
 //     q rows come from shared memory into registers, pre-scaled and rounded
@@ -55,8 +65,8 @@
 //     releases stage j-1 to the producer and rescales O.  The two
 //     warpgroups run independently, so one's softmax also overlaps the
 //     other's products.
-//   * Epilogue: O goes out as bf16 from registers (rows >= Lp never
-//     written), the lse per real row.
+//   * Epilogue: O goes out as bf16 (or f32) from registers (rows >= Lp
+//     never written), the lse per row < lq_real.
 
 #include <math.h>
 #include <stdint.h>
@@ -86,9 +96,11 @@ struct FwdSmem {
 
 struct FwdParams {
   CUtensorMap tq, tk, tv;
-  __nv_bfloat16* o;
+  void* o;       // bf16, or f32 with o_f32
   float* lse;
-  int lp, h, l_real;
+  int lp, h, o_f32;
+  int lk_real;   // keys < lk_real take part
+  int lq_real;   // rows < lq_real get their lse
   float scale;
 };
 
@@ -121,8 +133,8 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
   // SMAX: both entries hold the tile's one max, which starts at the pad
-  // keys' score 0 when there are pad keys (Lp > l_real).
-  const float m0 = (SMAX && p.lp > p.l_real) ? 0.f : -INFINITY;
+  // keys' score 0 when there are pad keys (Lp > lk_real).
+  const float m0 = (SMAX && p.lp > p.lk_real) ? 0.f : -INFINITY;
   float m_run[2] = {m0, m0}, l_run[2] = {0.f, 0.f};
 
   auto issue_s = [&](int st) {
@@ -142,10 +154,10 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
   // row sums; alpha rescales what was accumulated before tile j.
   auto softmax = [&](int j, float (&alpha)[2], float (&ls)[2]) {
     const int k0 = j * BK;
-    if (k0 + BK > p.l_real) {   // ragged last tile: keys >= l_real drop out
+    if (k0 + BK > p.lk_real) {   // ragged last tile: keys >= lk_real drop out
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i)
-        if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= p.l_real) sacc[i] = -INFINITY;
+        if (k0 + 8 * (i / 4) + 2 * t4 + (i & 1) >= p.lk_real) sacc[i] = -INFINITY;
     }
     if (SMAX && q0 + BQ > p.lp) {   // rows past Lp are not part of the tile
 #pragma unroll
@@ -253,24 +265,39 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
   // Clamped as on the TPU (:73, :207): only a SMAX row can underflow to 0.
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const long long o_sl = (long long)p.h * DH;
-  __nv_bfloat16* ob = p.o + (long long)bi * p.lp * o_sl + head * DH;
+  const long long o_off = (long long)bi * p.lp * o_sl + head * DH;
+  if (p.o_f32) {
+    float* ob = static_cast<float*>(p.o) + o_off;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (r0 < p.lp)
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_sl + c) =
-          pack_bf16x2(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
-    if (r0 + 8 < p.lp)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o_sl + c) =
-          pack_bf16x2(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (r0 < p.lp)
+        *reinterpret_cast<float2*>(ob + r0 * o_sl + c) =
+            make_float2(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+      if (r0 + 8 < p.lp)
+        *reinterpret_cast<float2*>(ob + (r0 + 8) * o_sl + c) =
+            make_float2(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+    }
+  } else {
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + o_off;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (r0 < p.lp)
+        *reinterpret_cast<uint32_t*>(ob + r0 * o_sl + c) =
+            pack_bf16x2(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+      if (r0 + 8 < p.lp)
+        *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o_sl + c) =
+            pack_bf16x2(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+    }
   }
   if (STATS && t4 == 0) {   // m and l are shared by the 4 threads of a quad
     float* lb = p.lse + (long long)bi * p.lp * p.h + head;
     if (r0 < p.lp)
-      lb[(long long)r0 * p.h] = r0 < p.l_real ? m_run[0] + log2f(l0) : 0.f;
+      lb[(long long)r0 * p.h] = r0 < p.lq_real ? m_run[0] + log2f(l0) : 0.f;
     if (r0 + 8 < p.lp)
       lb[(long long)(r0 + 8) * p.h] =
-          r0 + 8 < p.l_real ? m_run[1] + log2f(l1) : 0.f;
+          r0 + 8 < p.lq_real ? m_run[1] + log2f(l1) : 0.f;
   }
 }
 
@@ -282,7 +309,7 @@ flash_fwd_kernel(const __grid_constant__ FwdParams p) {
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, bi = blockIdx.z;
   const int wg = threadIdx.x / WG;
   const int n_active = q0 + ROWS < p.lp ? 2 : 1;   // consumers with rows < Lp
-  const int n_kt = (p.l_real + BK - 1) / BK;
+  const int n_kt = (p.lk_real + BK - 1) / BK;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < NSTAGE; ++st) {
@@ -331,20 +358,23 @@ int launch_kernel(const FwdParams& p, int b, cudaStream_t stream) {
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int b, int lp, int h, int l_real, float scale, long long q_sb,
+           int b, int lp, int h, int lk_real, int lq_real, float scale,
+           long long q_sb,
            long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-           long long v_sl, bool smax, cudaStream_t stream) {
+           long long v_sl, bool smax, bool o_f32, cudaStream_t stream) {
   FwdParams p;
   const int width = h * DH;
   if (!make_map_bf16<DH>(&p.tq, q, width, lp, b, q_sl, q_sb, BQ) ||
-      !make_map_bf16<DH>(&p.tk, k, width, l_real, b, k_sl, k_sb, BK) ||
-      !make_map_bf16<DH>(&p.tv, v, width, l_real, b, v_sl, v_sb, BK))
+      !make_map_bf16<DH>(&p.tk, k, width, lk_real, b, k_sl, k_sb, BK) ||
+      !make_map_bf16<DH>(&p.tv, v, width, lk_real, b, v_sl, v_sb, BK))
     return static_cast<int>(cudaErrorInvalidValue);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
+  p.o_f32 = o_f32;
   p.lse = static_cast<float*>(lse);
   p.lp = lp;
   p.h = h;
-  p.l_real = l_real;
+  p.lk_real = lk_real;
+  p.lq_real = lq_real;
   p.scale = scale;
   if (lse != nullptr) return launch_kernel<DH, true, false>(p, b, stream);
   if (smax) return launch_kernel<DH, false, true>(p, b, stream);
@@ -358,26 +388,33 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // 16-byte aligned and the row and batch strides multiples of 8 elements
 // (TMA's 16-byte rule; checked by the Python wrapper).  `lse` is null (no
 // stats) or a contiguous [b, lp, h] f32 buffer.  `smax` != 0 selects the
-// scalar-max recurrence, which exports no stats.  dh in {16, 32, 64}.
+// scalar-max recurrence, which exports no stats.  Keys < lk_real take part;
+// the lse of rows < lq_real is written (1 <= lk_real, lq_real <= lp).
+// o is a contiguous [b, lp, h*dh] buffer, bf16, or f32 when o_f32 != 0.
+// dh in {16, 32, 64}.
 extern "C" int odgs_flash_attn_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
-    int lp, int h, int dh, int l_real, float scale, long long q_sb,
-    long long q_sl, long long k_sb, long long k_sl, long long v_sb,
-    long long v_sl, int smax, void* stream) {
+    int lp, int h, int dh, int lk_real, int lq_real, float scale,
+    long long q_sb, long long q_sl, long long k_sb, long long k_sl,
+    long long v_sb, long long v_sl, int smax, int o_f32, void* stream) {
   if (b == 0 || lp == 0 || h == 0) return 0;
-  if (l_real < 1 || l_real > lp) return static_cast<int>(cudaErrorInvalidValue);
+  if (lk_real < 1 || lk_real > lp || lq_real < 1 || lq_real > lp)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smax && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      return launch<16>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
-                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
+      return launch<16>(q, k, v, o, lse, b, lp, h, lk_real, lq_real, scale,
+                        q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, smax != 0,
+                        o_f32 != 0, s);
     case 32:
-      return launch<32>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
-                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
+      return launch<32>(q, k, v, o, lse, b, lp, h, lk_real, lq_real, scale,
+                        q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, smax != 0,
+                        o_f32 != 0, s);
     case 64:
-      return launch<64>(q, k, v, o, lse, b, lp, h, l_real, scale, q_sb, q_sl,
-                        k_sb, k_sl, v_sb, v_sl, smax != 0, s);
+      return launch<64>(q, k, v, o, lse, b, lp, h, lk_real, lq_real, scale,
+                        q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, smax != 0,
+                        o_f32 != 0, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

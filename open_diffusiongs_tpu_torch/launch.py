@@ -14,13 +14,29 @@ the fixed-batch eval every trainer.eval_every_n_steps into
 eval_metrics.csv; a checkpoint each every_n_train_steps and at the end;
 optional TensorBoard and wandb loggers; validate / test / export
 artifacts.  `--device` (default cuda; raises without a GPU) replaces
-`--platform`.  One process on one GPU: trainer.model_parallel /
-seq_parallel / pipe_parallel > 1 raise (parallel/mesh.py).
+`--platform`.
+
+Several processes (JAX launch.py:104-118, 172-197): run under torchrun,
+    torchrun --nproc_per_node N -m open_diffusiongs_tpu_torch.launch \
+        --config ... --train trainer.seq_parallel=2 trainer.zero1=true
+each rank takes card LOCAL_RANK (parallel/mesh.py::init_mesh; backend
+nccl, or gloo on the CPU; `--dist-backend gloo` for ranks that share a
+card).  The world splits into dp = N / seq_parallel data rows of
+seq_parallel ring ranks; the global batch is data.batch_size × dp, of
+which each data rank loads its slice.  Rank 0 alone writes cmd.txt,
+parsed.yaml, the code snapshot, metrics.csv, eval_metrics.csv, the loggers,
+the progress file and the checkpoints (gathered from every rank first);
+logged metrics are averaged over the data ranks.  --validate / --test /
+--export shard the scenes over the data ranks (seq rank 0 of each row
+writes its scenes' artifacts).  trainer.model_parallel / pipe_parallel > 1
+raise (parallel/mesh.py).
 
 Randomness: the draws of training step s come from a generator seeded by
 (seed + 1, s) (JAX folds its key by the step), so a resumed run draws what
-an uninterrupted one would; eval pass i draws from seed 10_000 + i;
-validate and export draw from (seed + 2 | seed + 3, dataset index).
+an uninterrupted one would, and every rank draws the global batch's
+(systems/object_system.py); eval pass i draws from seed 10_000 + i;
+validate and export draw from (seed + 2 | seed + 3, dataset index); numpy's
+global seed is seed + rank (JAX launch.py:172-173).
 Metrics stay device tensors and are read at log steps only.
 
 Deviations from the JAX module:
@@ -30,8 +46,9 @@ Deviations from the JAX module:
     threads' order;
   * metrics.csv also holds loader_wait_s, the host seconds the loop
     waited on the loader since the previous log line;
-  * `main` returns a record of the run (trial dir, state, system, host
-    seconds of its stages) for in-process callers.
+  * `main` returns a record of the run (trial dir, state, system, mesh,
+    host seconds of its stages) for in-process callers, whose process
+    group stays up (the CLI tears it down at exit).
 """
 
 from __future__ import annotations
@@ -98,13 +115,22 @@ def main(argv=None) -> Dict[str, Any]:
                              "<trial_dir>/progress")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="torch.distributed backend of a multi-process "
+                             "run: nccl (default on cuda) or gloo (the CPU, "
+                             "or ranks sharing one card)")
+    parser.add_argument("--dist-init", default="env://",
+                        help="init_method of a multi-process run (default: "
+                             "torchrun's env://)")
     args, extras = parser.parse_known_args(argv)
     if not (args.train or args.validate or args.test or args.export):
         parser.error("one of --train / --validate / --test / --export "
                      "is required")
 
+    import dataclasses
+
     from . import _register_builtins, find, select_device
-    from .parallel.mesh import check_parallelism
+    from .parallel.mesh import check_parallelism, init_mesh
     from .utils.timing import StageClock
     from .parallel.train_step import init_train_state, make_optimizer
     from .systems.builder import build_optimizer_config, build_system
@@ -113,19 +139,26 @@ def main(argv=None) -> Dict[str, Any]:
 
     device = select_device(args.device)
     _register_builtins()
-    cfg = load_config(args.config, cli_args=extras)
+    cfg = load_config(args.config, cli_args=extras, makedirs=False)
     trainer_cfg = dict(cfg.trainer)
-    check_parallelism(trainer_cfg)
+    _, sp = check_parallelism(trainer_cfg,
+                              int(os.environ.get("WORLD_SIZE", 1)))
+    mesh = init_mesh(seq_parallel=sp, device_type=device.type,
+                     backend=args.dist_backend, init_method=args.dist_init)
+    device = mesh.device
+    if mesh.world > 1:   # one trial dir: rank 0's timestamp
+        cfg = dataclasses.replace(cfg, timestamp=_broadcast(cfg.timestamp))
 
     # --- reproducibility + snapshots (launch.py:172-173, 262-267) ---------
-    np.random.seed(cfg.seed)
-    os.makedirs(cfg.trial_dir, exist_ok=True)
-    cmd = (sys.argv if argv is None else
-           ["-m", "open_diffusiongs_tpu_torch.launch", *argv])
-    with open(os.path.join(cfg.trial_dir, "cmd.txt"), "w") as f:
-        f.write(" ".join(["python"] + list(cmd)))
-    dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"), cfg)
-    _snapshot_code(cfg.trial_dir)
+    np.random.seed(cfg.seed + mesh.rank)
+    if mesh.is_main:
+        os.makedirs(cfg.trial_dir, exist_ok=True)
+        cmd = (sys.argv if argv is None else
+               ["-m", "open_diffusiongs_tpu_torch.launch", *argv])
+        with open(os.path.join(cfg.trial_dir, "cmd.txt"), "w") as f:
+            f.write(" ".join(["python"] + list(cmd)))
+        dump_config(os.path.join(cfg.trial_dir, "parsed.yaml"), cfg)
+        _snapshot_code(cfg.trial_dir)
 
     bf16 = str(trainer_cfg.get("precision", "bf16")) in (
         "16-mixed", "bf16", "bf16-mixed", "16")
@@ -138,30 +171,32 @@ def main(argv=None) -> Dict[str, Any]:
     dataset = data_cls(cfg.data, split="train" if args.train else "test",
                        seed=cfg.seed)
     system = build_system(cfg.system_type, cfg.system, bf16=bf16,
-                          device=device)
+                          device=device, mesh=mesh)
     system.init_params(generator(device, cfg.seed))
     # stage-2-from-stage-1 / partial weight bootstrap (overridden by resume)
     system.load_pretrained()
     params = dict(system.model.named_parameters())
     optimizer = make_optimizer(build_optimizer_config(cfg.system,
                                                       trainer_cfg),
-                               params.items())
+                               params.items(), mesh=mesh,
+                               zero1=bool(trainer_cfg.get("zero1", False)))
     state = init_train_state(params, optimizer, ema_decay=0.9999)
     clock.stage("setup")
 
     ckpt = CheckpointManager(
         os.path.join(cfg.trial_dir, "ckpts"),
         every_n_train_steps=dict(cfg.checkpoint).get("every_n_train_steps",
-                                                     1000))
+                                                     1000), mesh=mesh)
     if cfg.resume:
-        resume_mngr = (CheckpointManager(cfg.resume)
+        resume_mngr = (CheckpointManager(cfg.resume, mesh=mesh)
                        if os.path.abspath(cfg.resume) != ckpt.directory
                        else ckpt)
         state = resume_mngr.restore(state)
         clock.stage("restore")
-        print(f"Resumed from {cfg.resume} at step {state.step} "
-              f"({record['seconds']['restore']:.3f} s)", flush=True)
+        _print(mesh, f"Resumed from {cfg.resume} at step {state.step} "
+                     f"({record['seconds']['restore']:.3f} s)")
 
+    record.update(mesh=mesh)
     if args.train:
         state = train(cfg, args, system, state, dataset, ckpt, device,
                       record)
@@ -177,30 +212,47 @@ def main(argv=None) -> Dict[str, Any]:
     return record
 
 
+def _print(mesh, line: str) -> None:
+    """A log line, from rank 0 only."""
+    if mesh.is_main:
+        print(line, flush=True)
+
+
+def _broadcast(value):
+    """Rank 0's value of a picklable object, on every rank."""
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def train(cfg, args, system, state, dataset, ckpt, device, record):
     from .data.loader import PrefetchLoader, collate
     from .parallel.mesh import local_batch_slice
     from .parallel.train_step import make_train_step
 
+    mesh = record["mesh"]
     trainer_cfg = dict(cfg.trainer)
     log_every = int(trainer_cfg.get("log_every_n_steps", 5))
     max_steps = args.max_steps or int(trainer_cfg.get("max_steps", 10 ** 9))
-    batch_size = int(cfg.data.get("batch_size", 4))
+    # data.batch_size per data rank; the index stream is the global batch's,
+    # seeded alike on every rank, each loading its slice (JAX :172-183)
+    batch_size = int(cfg.data.get("batch_size", 4)) * mesh.dp
     loader = PrefetchLoader(
         dataset, batch_size=batch_size, shuffle=True,
         num_threads=max(1, int(cfg.data.get("num_workers", 2))),
-        seed=cfg.seed, process_slice=local_batch_slice(batch_size))
+        seed=cfg.seed, process_slice=local_batch_slice(batch_size, mesh))
     step_fn = make_train_step(
         lambda batch, step: system.train_loss(
             batch, step, generator=generator(device, cfg.seed + 1, step)),
         state.optimizer, ema_decay=0.9999)
 
     t0 = time.perf_counter()
-    writer, wandb_run = _loggers(cfg)
+    writer, wandb_run = _loggers(cfg) if mesh.is_main else (None, None)
     record["seconds"]["loggers"] = time.perf_counter() - t0
     csv_path = os.path.join(cfg.trial_dir, "metrics.csv")
     progress = ProgressFile(os.path.join(cfg.trial_dir, "progress")
-                            if args.gradio else None)
+                            if args.gradio and mesh.is_main else None)
     step = start_step = last_logged_step = state.step
     # deterministic learning signal: every trainer.eval_every_n_steps, the
     # loss on a FIXED batch with FIXED draws, so the eval metrics are a
@@ -211,8 +263,8 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
     if eval_every:
         fresh = type(dataset)(dataset.cfg, split=dataset.split,
                               seed=cfg.seed)
-        eval_batch = to_device(collate(
-            [fresh[i] for i in loader.first_batch_indices()]), device)
+        first = loader.first_batch_indices()[loader.process_slice]
+        eval_batch = to_device(collate([fresh[i] for i in first]), device)
 
     def run_eval():
         import torch
@@ -220,8 +272,11 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
             outs = [system.train_loss(eval_batch, EVAL_STEP,
                                       generator=generator(device, s))[1]
                     for s in EVAL_SEEDS]
-        m = {k: float(torch.stack([o[k].float() for o in outs]).mean())
-             for k in outs[0]}
+        m = mesh.mean_metrics({
+            k: torch.stack([o[k].double() for o in outs]).mean()
+            for k in outs[0]})
+        if not mesh.is_main:
+            return
         print("eval step {}: {}".format(step, " ".join(
             f"{k}={v:.4g}" for k, v in sorted(m.items()))), flush=True)
         _append_csv(eval_csv, step, m)
@@ -244,7 +299,7 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
         # the `or` term guarantees a log line right after (re)start:
         # resume evidence must not wait a full log_every window
         if step % log_every == 0 or step == start_step + 1:
-            m = {k: float(v) for k, v in metrics.items()}   # syncs here
+            m = mesh.mean_metrics(metrics)   # syncs here
             dt = time.time() - t0
             t0 = time.time()
             m["steps_per_sec"] = (step - last_logged_step) / dt
@@ -253,24 +308,9 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
             m["loader_wait_s"] = loader_wait
             loader_wait = 0.0
             last_logged_step = step
-            line = " ".join(f"{k}={v:.4g}" for k, v in sorted(m.items()))
-            print(f"step {step}: {line}", flush=True)
-            # capacity alarm ("no silent caps", docs/CAPACITY.md)
-            if m.get("overflow_frac", 0.0) > 0.05:
-                print(f"WARNING: rasterizer dropped "
-                      f"{100 * m['overflow_frac']:.1f}% of per-tile "
-                      f"entries (> 5%); consider raising "
-                      f"system.raster.max_per_tile (docs/CAPACITY.md)",
-                      flush=True)
-            _append_csv(csv_path, step, m)
-            progress.write(f"Generation progress: "
-                           f"{step / max_steps * 100:.2f}%")
-            if writer:
-                for k, v in m.items():
-                    writer.add_scalar(f"train/{k}", v, step)
-            if wandb_run:
-                wandb_run.log({f"train/{k}": v for k, v in m.items()},
-                              step=step)
+            if mesh.is_main:
+                _write_log(m, step, max_steps, csv_path, progress, writer,
+                           wandb_run)
         _save(ckpt, state, step, record)
         t_wait = time.time()
     _save(ckpt, state, step, record, force=True)
@@ -278,14 +318,35 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
         writer.close()
     if wandb_run:
         wandb_run.finish()
-    print(f"training done at step {step}", flush=True)
+    _print(mesh, f"training done at step {step}")
     return state
+
+
+def _write_log(m, step, max_steps, csv_path, progress, writer, wandb_run):
+    """A log step's line, metrics.csv row, progress and logger entries."""
+    line = " ".join(f"{k}={v:.4g}" for k, v in sorted(m.items()))
+    print(f"step {step}: {line}", flush=True)
+    # capacity alarm ("no silent caps", docs/CAPACITY.md)
+    if m.get("overflow_frac", 0.0) > 0.05:
+        print(f"WARNING: rasterizer dropped "
+              f"{100 * m['overflow_frac']:.1f}% of per-tile "
+              f"entries (> 5%); consider raising "
+              f"system.raster.max_per_tile (docs/CAPACITY.md)", flush=True)
+    _append_csv(csv_path, step, m)
+    progress.write(f"Generation progress: {step / max_steps * 100:.2f}%")
+    if writer:
+        for k, v in m.items():
+            writer.add_scalar(f"train/{k}", v, step)
+    if wandb_run:
+        wandb_run.log({f"train/{k}": v for k, v in m.items()}, step=step)
 
 
 def _save(ckpt, state, step, record, force=False) -> None:
     """ckpt.maybe_save, recording the path, bytes and seconds of a save."""
     t0 = time.perf_counter()
     if ckpt.maybe_save(state, force=force, step=step):
+        if not ckpt.writes:
+            return
         path = os.path.join(ckpt.directory, f"{step}.pt")
         saved = {"path": path, "bytes": os.path.getsize(path),
                  "seconds": time.perf_counter() - t0}
@@ -320,10 +381,11 @@ def _eval_params(args, state):
     """Copy the EMA into the model's params for --use_ema (the state is not
     trained afterwards)."""
     import torch
-    if args.use_ema and state.ema_params is not None:
+    if args.use_ema and state.has_ema:
+        ema = state.full_ema()
         with torch.no_grad():
             for k, p in state.params.items():
-                p.copy_(state.ema_params[k])
+                p.copy_(ema[k])
 
 
 def _sample(system, batch, device, gen, return_trajectory=False):
@@ -360,6 +422,9 @@ def validate(cfg, args, system, state, dataset, device, record):
     from .utils.saving import chw_to_hwc, save_image_grid
 
     _eval_params(args, state)
+    mesh = record["mesh"]
+    # the seq ranks of a data row sample the same scenes; one writes them
+    writes = mesh.seq_rank == 0
     step = state.step
     n_total = len(dataset)
     eval_bs = int(cfg.data.get("eval_batch_size", 1))
@@ -367,11 +432,11 @@ def validate(cfg, args, system, state, dataset, device, record):
     # --test mirrors --validate but keeps its artifacts separate
     suffix = "-test" if args.test else ""
     out_dir = os.path.join(cfg.trial_dir, "save", f"it{step}{suffix}")
-    if args.gradio:
+    if args.gradio and mesh.is_main:
         ProgressFile(os.path.join(cfg.trial_dir, "progress")).write(
             "Rendering video ..." if suffix else
             "Rendering validation image ...")
-    owned = eval_shard_indices(n_total)
+    owned = eval_shard_indices(n_total, mesh=mesh)
     # Lightning-parity trainer.limit_val_batches: int = batch count,
     # float in (0, 1) = fraction of the eval set
     lim = cfg.trainer.get("limit_val_batches") if cfg.trainer else None
@@ -406,7 +471,7 @@ def validate(cfg, args, system, state, dataset, device, record):
             psnr_sum += float((-10.0 * np.log10(np.maximum(mse, 1e-10)))
                               .sum())
             view_count += mse.size
-        for bi, uid in enumerate(batch["uid"]):
+        for bi, uid in enumerate(batch["uid"] if writes else ()):
             if getattr(system.cfg, "save_result_for_eval", False):
                 system.save_result_for_eval(
                     cfg.trial_dir, step, uid, renders[bi],
@@ -425,11 +490,13 @@ def validate(cfg, args, system, state, dataset, device, record):
                 _scene_artifacts(out_dir, str(uid), out, bi, batch, renders,
                                  system, device)
                 clock.stage("ply_and_path_video")
-        print(f"validated {i + len(samples)}/{len(owned)} (of {n_total} "
-              f"total)", flush=True)
+        if writes:
+            print(f"validated {i + len(samples)}/{len(owned)} (of "
+                  f"{n_total} total)", flush=True)
 
-    total_psnr, total_views = allreduce_metric_sums([psnr_sum, view_count])
-    if total_views > 0:
+    total_psnr, total_views = allreduce_metric_sums([psnr_sum, view_count],
+                                                    mesh)
+    if total_views > 0 and mesh.is_main:
         summary = {"psnr": total_psnr / total_views,
                    "num_views": int(total_views), "step": step}
         os.makedirs(out_dir, exist_ok=True)
@@ -454,11 +521,13 @@ def export(cfg, args, system, state, dataset, device, record):
     from .utils.saving import chw_to_hwc, save_image_grid
 
     _eval_params(args, state)
+    mesh = record["mesh"]
+    writes = mesh.seq_rank == 0
     out_dir = os.path.join(cfg.trial_dir, "save", f"it{state.step}-export")
     progress = ProgressFile(os.path.join(cfg.trial_dir, "progress")
-                            if args.gradio else None)
+                            if args.gradio and mesh.is_main else None)
     progress.write("Exporting assets ...")
-    owned = eval_shard_indices(len(dataset))
+    owned = eval_shard_indices(len(dataset), mesh=mesh)
     lim = cfg.trainer.get("limit_val_batches") if cfg.trainer else None
     if lim is not None:
         keep = (max(1, int(round(len(owned) * float(lim))))
@@ -469,6 +538,8 @@ def export(cfg, args, system, state, dataset, device, record):
         with torch.no_grad():
             out = _sample(system, batch, device,
                           generator(device, cfg.seed + 3, j))
+        if not writes:
+            continue
         renders = out["renders"].cpu().numpy()            # [1, v, 3, h, w]
         uid = str(batch["uid"][0])
         save_image_grid(os.path.join(out_dir, f"{uid}.png"),
@@ -477,7 +548,8 @@ def export(cfg, args, system, state, dataset, device, record):
         print(f"exported {uid} ({i + 1}/{len(owned)}) -> {out_dir}",
               flush=True)
         progress.write(f"Exporting assets ... {i + 1}/{len(owned)}")
-    print(f"export done: {len(owned)} scenes in {out_dir}", flush=True)
+    if writes:
+        print(f"export done: {len(owned)} scenes in {out_dir}", flush=True)
     record.update(out_dir=out_dir, scenes=len(owned))
 
 
@@ -536,4 +608,7 @@ def _append_csv(path: str, step: int, metrics: Dict[str, float]):
 
 
 if __name__ == "__main__":
-    main()
+    if main()["mesh"].world > 1:      # in-process callers keep the group
+        import torch.distributed as dist
+        dist.barrier()
+        dist.destroy_process_group()

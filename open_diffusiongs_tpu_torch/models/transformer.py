@@ -43,8 +43,16 @@ function on its own kernels, `FlashFullMHA` (ops/attention.py: the stats
 forward #5s and the backward #5b), whenever grad mode is on and an input
 requires grad, and #5's serving forward otherwise.
 
+Sequence parallelism (transformer.py:192-200, 370-373, 525-551): with a
+`seq` mesh of sp > 1 ranks (parallel/mesh.py), DiTStack pads the token axis
+to `plan_packed`'s length, keeps this rank's Lp/sp rows through every
+per-token op and all-gathers after the last block (`gather_seq`, whose
+backward sums the ranks' cotangents); packed blocks attend through the
+ring (parallel/ring.py: #1s and #3 per ring step), the others gather k and
+v over the ring and run the general route on the local queries.
+
 Left out of this port (ROADMAP Queue 1): splash as an `attn_impl` of its
-own (a JAX library kernel) and ring / pipeline / tensor-parallel meshes.
+own (a JAX library kernel) and pipeline / tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -56,8 +64,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import flash_attention, flash_full_attention
+from ..ops.attention import flash_attention, flash_full_attention, \
+    plan_packed
 from ..ops.quant import QuantLinear
+from ..parallel.ring import gather_seq, ring_attention
 
 ATTN_IMPLS = ("auto", "flash", "splash", "xla")
 
@@ -225,13 +235,21 @@ class Attention(nn.Module):
     separate q / k / v QuantDenses (a row is one output channel of one of
     them) and to the same per-token activation scales (all three read the
     same input), so its output is theirs, concatenated
-    (tests/test_torch_quant.py holds this bit for bit in f32)."""
+    (tests/test_torch_quant.py holds this bit for bit in f32).
+
+    With a `seq` mesh of sp > 1 ranks, x holds this rank's rows of a
+    sequence whose rows >= `l_real` (a forward argument) are padding:
+    packed blocks run `ring_attention` on the local qkv, the others gather
+    k and v over the ring (`gather_seq`), slice them to the real rows and
+    attend the local queries to them, as XLA does in JAX
+    (transformer.py:370-405)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "auto", qk_norm: bool = False,
-                 quant_int8: bool = False):
+                 quant_int8: bool = False, seq=None):
         super().__init__()
         self.num_heads = num_heads
+        self.seq = seq
         self.attn_impl = resolve_attn_impl(attn_impl)
         self.packed = (self.attn_impl == "flash"
                        and takes_packed(dim, num_heads, qk_norm))
@@ -243,9 +261,12 @@ class Attention(nn.Module):
         self.qk_norm = qk_norm
         self.proj = dense(dim, dim, compute_dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, l_real: int | None = None
+                ) -> torch.Tensor:
         b, l, d = x.shape
         qkv = self.qkv(x)
+        if self.seq is not None and self.seq.sp > 1:
+            return self.proj(self._seq_attention(qkv, l_real))
         if self.packed:
             return self.proj(flash_attention(qkv, num_heads=self.num_heads,
                                              l_real=l))
@@ -255,6 +276,23 @@ class Attention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         o = fused_attention(q, k, v, self.attn_impl)
         return self.proj(o.reshape(b, l, d))
+
+    def _seq_attention(self, qkv: torch.Tensor, l_real: int) -> torch.Tensor:
+        if l_real is None:
+            raise ValueError("sequence-parallel attention needs l_real, the "
+                             "real rows of the whole sequence")
+        if self.packed:
+            return ring_attention(qkv, num_heads=self.num_heads,
+                                  l_real=l_real, mesh=self.seq)
+        b, lq, d3 = qkv.shape
+        q, k, v = (t.reshape(b, lq, self.num_heads, -1)
+                   for t in qkv.chunk(3, dim=-1))
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        k = gather_seq(k, self.seq)[:, :l_real]
+        v = gather_seq(v, self.seq)[:, :l_real]
+        o = fused_attention(q, k, v, self.attn_impl)
+        return o.reshape(b, lq, d3 // 3)
 
 
 class Mlp(nn.Module):
@@ -277,22 +315,25 @@ class DiTBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
                  attn_impl: str = "auto", qk_norm: bool = False,
-                 quant_int8: bool = False):
+                 quant_int8: bool = False, seq=None):
         super().__init__()
         self.attn = Attention(hidden_size, num_heads, dtype=dtype,
                               attn_impl=attn_impl, qk_norm=qk_norm,
-                              quant_int8=quant_int8)
+                              quant_int8=quant_int8, seq=seq)
         self.mlp = Mlp(hidden_size, mlp_ratio, dtype=dtype,
                        quant_int8=quant_int8)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size,
                               compute_dtype=dtype))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor,
+                l_real: int | None = None) -> torch.Tensor:
+        """`l_real`: the real rows of the whole sequence when x is a seq
+        rank's shard (Attention)."""
         (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
          gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
         x = x + gate_msa[:, None, :] * self.attn(
-            modulate(norm_noaffine(x), shift_msa, scale_msa))
+            modulate(norm_noaffine(x), shift_msa, scale_msa), l_real)
         x = x + gate_mlp[:, None, :] * self.mlp(
             modulate(norm_noaffine(x), shift_mlp, scale_mlp))
         return x
@@ -300,29 +341,47 @@ class DiTBlock(nn.Module):
 
 class DiTStack(nn.ModuleList):
     """`num_layers` DiT blocks run in a Python loop (the JAX package scans
-    one block over stacked params).  Runs at the real token count L: the
-    attention kernel masks its ragged tile itself, so no padding.
-    `checkpoint`: recompute each block in the backward instead of keeping
-    its activations (only while grad mode is on).  Like JAX's stack it
-    takes `attn_impl`, `quant_int8` and no `qk_norm`
+    one block over stacked params).  On one rank it runs at the real token
+    count L: the attention kernel masks its ragged tile itself, so no
+    padding.  With a `seq` mesh of sp > 1 ranks (transformer.py:525-551) it
+    pads the tokens to `plan_packed(L)`'s length Lp (Lp % sp == 0), runs
+    the blocks on this rank's Lp/sp rows and all-gathers the result over
+    the ring before slicing it back to L: every seq rank returns the whole
+    [b, L, d].  `checkpoint`: recompute each block in the backward instead
+    of keeping its activations (only while grad mode is on).  Like JAX's
+    stack it takes `attn_impl`, `quant_int8` and no `qk_norm`
     (transformer.py:480-609)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
                  checkpoint: bool = False, attn_impl: str = "auto",
-                 quant_int8: bool = False):
+                 quant_int8: bool = False, seq=None):
         super().__init__(DiTBlock(hidden_size, num_heads, mlp_ratio,
                                   dtype=dtype, attn_impl=attn_impl,
-                                  quant_int8=quant_int8)
+                                  quant_int8=quant_int8, seq=seq)
                          for _ in range(num_layers))
         self.checkpoint = checkpoint
+        self.seq = seq
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         remat = self.checkpoint and torch.is_grad_enabled()
+        sp = 1 if self.seq is None else self.seq.sp
+        l = l_real = x.shape[1]
+        if sp > 1:
+            lp = plan_packed(l)[0]
+            if lp % sp:
+                raise ValueError(f"padded token axis {lp} does not divide "
+                                 f"seq_parallel={sp}")
+            lq, s = lp // sp, self.seq.seq_rank
+            x = F.pad(x, (0, 0, 0, lp - l))[:, s * lq:(s + 1) * lq]
+        else:
+            l_real = None
         for block in self:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(block, x, c,
+                x = torch.utils.checkpoint.checkpoint(block, x, c, l_real,
                                                       use_reentrant=False)
             else:
-                x = block(x, c)
+                x = block(x, c, l_real)
+        if sp > 1:
+            x = gather_seq(x, self.seq)[:, :l]
         return x

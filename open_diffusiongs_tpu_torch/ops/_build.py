@@ -49,10 +49,10 @@ _F = ctypes.c_float
 # C signatures of the kernels' launch functions (csrc/*.cu); each returns
 # the cudaError_t of its launch.
 SIGNATURES = {
-    # q, k, v, o, lse (or None), b, lp, h, dh, l_real, scale,
-    # q/k/v batch and row strides (elements), scalar_max, stream
-    "odgs_flash_attn_fwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _L, _L, _L, _L, _L, _L, _I, _P],
+    # q, k, v, o, lse (or None), b, lp, h, dh, lk_real, lq_real, scale,
+    # q/k/v batch and row strides (elements), scalar_max, o_f32, stream
+    "odgs_flash_attn_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 6
+                                + [_I, _I, _P],
     # q, k, v, o, b, lq, lk, h, d, dm (columns the maps read), scale,
     # q/k/v batch, row and head strides (elements), pv_f32, score_bf16,
     # stream
@@ -66,10 +66,11 @@ SIGNATURES = {
     # q~/k/v/dout batch, row and head strides (elements), stream
     "odgs_flash_full_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F] + [_L] * 12
                                 + [_P],
-    # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, l_real, scale,
-    # q/k/v/dout/dq/dk/dv batch and row strides (elements), stream
-    "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 5 + [_F] + [_L] * 14
-                                + [_P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, lk_real,
+    # lq_real, scale, q/k/v/dout/dq/dk/dv batch and row strides
+    # (elements), out_f32, stream
+    "odgs_flash_attn_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F] + [_L] * 14
+                                + [_I, _P],
     # packed, idx, counts, num_tiles, k, tiles_x, t_fin, acc_c, acc_d,
     # n_end, stream
     "odgs_blend_fwd": [_P] * 3 + [_I] * 3 + [_P] * 5,

@@ -41,7 +41,15 @@ JAX keeps that primal for inference.
 The JAX DiT pads the token axis once around the whole stack to a block
 multiple (transformer.py:525-538, plan_packed :125-139: 4098 -> 4608 at
 256^2).  The port's kernels mask the ragged tile themselves, so the port's
-DiT runs at Lp = L; the real rows agree either way.
+DiT runs at Lp = L on one rank; the real rows agree either way.  Under
+sequence parallelism it pads to `plan_packed`'s length, which the ranks
+split evenly (models/transformer.py).
+
+Query and key extents: the packed kernels #1s and #3 take `lq_real` (the
+query rows whose lse and dq they produce) apart from `lk_real` (the keys
+that take part, and the dk / dv rows they produce); `l_real` sets both.
+The ring steps of parallel/ring.py need them apart: a full query shard
+meets the tail shard's keys, and the tail's queries meet a full shard's.
 """
 
 from __future__ import annotations
@@ -68,7 +76,10 @@ PACKED_DH = (16, 32, 64)   # head widths of the packed kernels
 SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
 
 
-def _check_shapes(q, k, v, num_heads: int, l_real: int):
+def _check_shapes(q, k, v, num_heads: int, l_real=None, lq_real=None,
+                  lk_real=None):
+    """Shapes and extents of a packed call: (b, Lp, h*dh, dh, lq_real,
+    lk_real), each extent defaulting to `l_real`."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v must share one [b, Lp, h*dh] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -76,9 +87,26 @@ def _check_shapes(q, k, v, num_heads: int, l_real: int):
     b, lp, hd = q.shape
     if hd % num_heads:
         raise ValueError(f"width {hd} is not divisible by {num_heads} heads")
-    if not 1 <= l_real <= lp:
-        raise ValueError(f"l_real={l_real} outside [1, Lp={lp}]")
-    return b, lp, hd, hd // num_heads
+    lq = l_real if lq_real is None else lq_real
+    lk = l_real if lk_real is None else lk_real
+    for name, n in (("lq_real", lq), ("lk_real", lk)):
+        if n is None:
+            raise ValueError(f"give l_real or {name}")
+        if not 1 <= n <= lp:
+            raise ValueError(f"{name}={n} outside [1, Lp={lp}]")
+    return b, lp, hd, hd // num_heads, int(lq), int(lk)
+
+
+def plan_packed(l: int) -> tuple[int, tuple[int, int]]:
+    """(padded length, (bq, bkv)) for a DiT token count l: JAX's plan
+    (ops/attention.py:125-139 of the JAX package), copied.  The port pads
+    to this length under sequence parallelism only (the ranks split it
+    evenly: 4098 -> 4608, 16386 -> 16896); its kernels need no block
+    multiple, so the blocks are the TPU's and unused here."""
+    lp = -(-l // 512) * 512
+    if l > 2048 and lp % 1536 == 0:
+        return lp, ((1536, 512) if l >= 8192 else (1536, 768))
+    return lp, (512, 512)
 
 
 def tma_compatible(data_ptr: int, strides, itemsize: int) -> bool:
@@ -108,8 +136,9 @@ def _delta_by_head(do: torch.Tensor, o: torch.Tensor, num_heads: int,
                    l_real: int) -> torch.Tensor:
     """delta = rowsum(dO * O) per head in f32, reduced straight into the
     backward kernels' zero-padded [b, h, stats_pitch(Lp)] layout over the
-    rows < l_real only: the kernels never read dO, O or delta on the rows
-    >= l_real (their tensor maps end there), so dO needs no mask."""
+    query rows < l_real (a launch's lq_real) only: the kernels never read
+    dO, O or delta on the rows past it (their tensor maps end there), so dO
+    needs no mask."""
     b, lp, hd = o.shape
     out = torch.zeros((b, num_heads, stats_pitch(lp)), dtype=torch.float32,
                       device=o.device)
@@ -206,51 +235,64 @@ def _block_max(s: torch.Tensor, block_rows: int, pad_keys: bool
 
 
 def flash_mha_packed_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, num_heads: int, l_real: int,
+                         *, num_heads: int, l_real: int | None = None,
+                         lq_real: int | None = None,
+                         lk_real: int | None = None,
                          with_stats: bool = False, scalar_max: bool = False,
-                         block_rows: int = SMAX_BLOCK_ROWS):
+                         block_rows: int = SMAX_BLOCK_ROWS,
+                         out_f32: bool = False):
     """Plain PyTorch version of the forward kernel: explicit f32 matmuls and
-    a softmax in base 2 over the keys < l_real, with q~ as the kernels form
-    it.  Returns o [b, Lp, h*dh] in q's dtype (rows >= l_real garbage), and
-    with `with_stats` also lse [b, Lp, h] f32: m + log2(sum 2^(s - m)) of
-    every real row, 0 on pad rows.
+    a softmax in base 2 over the keys < lk_real, with q~ as the kernels form
+    it.  Returns o [b, Lp, h*dh] in q's dtype, or unrounded f32 with
+    `out_f32` (every row computed; rows >= lq_real are the caller's pad
+    rows), and with `with_stats` also lse [b, Lp, h] f32: m + log2(sum
+    2^(s - m)) of every row < lq_real, 0 past it.  `l_real` sets both
+    extents.
 
     `scalar_max` is the block-scalar recurrence of `_fwd_kernel_packed_smax`
     (JAX :146-210) in closed form: one shared max M per block of
     `block_rows` q rows (the kernel's q tile: 64 for the CUDA kernel, bq on
     the TPU) and head, over all its rows < Lp (pad rows included) and keys
-    < l_real, plus the zeroed pad keys' score 0 when Lp > l_real; then
+    < lk_real, plus the zeroed pad keys' score 0 when Lp > lk_real; then
     p = 2^(s - M) and o = p·v / max(sum p, 1e-30).  A row whose scores all
     sit > ~126 below M underflows to o = 0, as on the TPU (precondition
     :157-163)."""
-    b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
+    b, lp, hd, dh, lq, lk = _check_shapes(q, k, v, num_heads, l_real,
+                                          lq_real, lk_real)
     if scalar_max and with_stats:
         raise ValueError("flash_mha_packed: scalar_max exports no stats "
                          "(the stats need the row-max kernel)")
     s = torch.matmul(_heads(_prescaled_q(q, dh), lp, num_heads),
-                     _heads(k, l_real, num_heads).transpose(-1, -2))
-    m = (_block_max(s, block_rows, lp > l_real) if scalar_max
+                     _heads(k, lk, num_heads).transpose(-1, -2))
+    m = (_block_max(s, block_rows, lp > lk) if scalar_max
          else s.amax(dim=-1, keepdim=True))
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if scalar_max:
         l = l.clamp(min=1e-30)
-    o = _unheads(torch.matmul(p, _heads(v, l_real, num_heads)) / l)
-    o = o.to(q.dtype)
+    o = _unheads(torch.matmul(p, _heads(v, lk, num_heads)) / l)
+    o = o.to(torch.float32 if out_f32 else q.dtype)
     if not with_stats:
         return o
     lse = (m + torch.log2(l))[..., 0].transpose(1, 2)       # [b, Lp, h]
-    real = torch.arange(lp, device=q.device)[None, :, None] < l_real
+    real = torch.arange(lp, device=q.device)[None, :, None] < lq
     return o, torch.where(real, lse, 0.0).contiguous()
 
 
 def flash_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     num_heads: int, l_real: int, with_stats: bool = False,
-                     scalar_max: bool = False):
+                     num_heads: int, l_real: int | None = None,
+                     lq_real: int | None = None, lk_real: int | None = None,
+                     with_stats: bool = False, scalar_max: bool = False,
+                     out_f32: bool = False):
     """Full MHA on the packed layout [b, Lp, h*dh] (head h in columns
-    h*dh .. h*dh+dh-1); keys >= l_real are excluded.  Returns a new
-    contiguous [b, Lp, h*dh] tensor in q's dtype (pad rows garbage), and
-    with `with_stats` also the base-2 lse [b, Lp, h] f32 (pad rows 0).
+    h*dh .. h*dh+dh-1); keys >= lk_real are excluded.  Returns a new
+    contiguous [b, Lp, h*dh] tensor in q's dtype (rows >= lq_real are the
+    caller's pad rows, computed and meaningless), and with `with_stats`
+    also the base-2 lse [b, Lp, h] f32 of every row < lq_real (0 past it).
+    `l_real` sets both extents (the one-rank DiT: lq_real = lk_real = L);
+    a ring step sets them apart (parallel/ring.py) and takes o in f32
+    (`out_f32`: the values the bf16 output rounds, for a merge that rounds
+    once).
     `scalar_max` runs the block-scalar recurrence (one running max per
     64-row q tile and head; see `flash_mha_packed_ref`), which exports no
     stats.
@@ -262,26 +304,29 @@ def flash_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q/k/v may be column slices of one fused qkv projection.  It records no
     gradient: see `flash_attention`."""
     global LAUNCHES, LAUNCHES_STATS, LAUNCHES_SMAX
-    b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
+    b, lp, hd, dh, lq, lk = _check_shapes(q, k, v, num_heads, l_real,
+                                          lq_real, lk_real)
     if scalar_max and with_stats:
         raise ValueError("flash_mha_packed: scalar_max exports no stats "
                          "(the stats need the row-max kernel)")
     if q.device.type == "cpu":
         return flash_mha_packed_ref(q, k, v, num_heads=num_heads,
-                                    l_real=l_real, with_stats=with_stats,
-                                    scalar_max=scalar_max)
+                                    lq_real=lq, lk_real=lk,
+                                    with_stats=with_stats,
+                                    scalar_max=scalar_max, out_f32=out_f32)
     _check_cuda("flash_mha_packed", q, dh, dict(q=q, k=k, v=v))
     _refuse_grad("flash_mha_packed", q, k, v)
-    out = torch.empty((b, lp, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, lp, hd), device=q.device,
+                      dtype=torch.float32 if out_f32 else q.dtype)
     lse = (torch.empty((b, lp, num_heads), dtype=torch.float32,
                        device=q.device) if with_stats else None)
     lib = _build.load_library()
     err = lib.odgs_flash_attn_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, lp, num_heads, dh,
-        l_real, dh ** -0.5 * LOG2E,
+        lk, lq, dh ** -0.5 * LOG2E,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), int(scalar_max),
+        v.stride(0), v.stride(1), int(scalar_max), int(out_f32),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_mha_packed")
     if with_stats:
@@ -306,18 +351,22 @@ def _masked_cotangent(do: torch.Tensor, o: torch.Tensor, num_heads: int,
 
 
 def flash_mha_packed_bwd_ref(q, k, v, o, do, lse, *, num_heads: int,
-                             l_real: int):
+                             l_real: int | None = None,
+                             lq_real: int | None = None,
+                             lk_real: int | None = None, out_dtype=None):
     """Plain PyTorch version of the backward kernels (explicit f32):
     P = exp2(q~·kᵀ - lse), dS = P ∘ (dO·vᵀ - δ), dq = dh^-1/2 dS·k,
-    dk = ln2 dSᵀ·q~, dv = Pᵀ·dO over keys < l_real, with dO and the rows
-    of P and dS zeroed on rows >= l_real.  Returns (dq, dk, dv) in the
-    primal dtypes, rows >= l_real exactly 0."""
-    b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
-    do, delta = _masked_cotangent(do, o, num_heads, l_real)
+    dk = ln2 dSᵀ·q~, dv = Pᵀ·dO over keys < lk_real, with dO and the rows
+    of P and dS zeroed on query rows >= lq_real.  Returns (dq, dk, dv) in
+    the primal dtypes (or `out_dtype`), dq rows >= lq_real and dk / dv rows
+    >= lk_real exactly 0.  `l_real` sets both extents."""
+    b, lp, hd, dh, lq, lk = _check_shapes(q, k, v, num_heads, l_real,
+                                          lq_real, lk_real)
+    do, delta = _masked_cotangent(do, o, num_heads, lq)
     qs = _heads(_prescaled_q(q, dh), lp, num_heads)             # [b,h,Lp,dh]
-    kh, vh = _heads(k, l_real, num_heads), _heads(v, l_real, num_heads)
+    kh, vh = _heads(k, lk, num_heads), _heads(v, lk, num_heads)
     doh = _heads(do, lp, num_heads)
-    real = (torch.arange(lp, device=q.device) < l_real)[None, None, :, None]
+    real = (torch.arange(lp, device=q.device) < lq)[None, None, :, None]
     p = torch.exp2(torch.matmul(qs, kh.transpose(-1, -2))
                    - lse.transpose(1, 2)[..., None].float())
     p = torch.where(real, p, 0.0)
@@ -325,22 +374,27 @@ def flash_mha_packed_bwd_ref(q, k, v, o, do, lse, *, num_heads: int,
               - delta.transpose(1, 2)[..., None])
     ds = torch.where(real, ds, 0.0)
     dq = torch.where(real, torch.matmul(ds, kh), 0.0) * dh ** -0.5
-    pad = (0, 0, 0, lp - l_real)
+    pad = (0, 0, 0, lp - lk)
     dk = torch.nn.functional.pad(
         torch.matmul(ds.transpose(-1, -2), qs) / LOG2E, pad)
     dv = torch.nn.functional.pad(torch.matmul(p.transpose(-1, -2), doh), pad)
-    return (_unheads(dq).to(q.dtype), _unheads(dk).to(k.dtype),
-            _unheads(dv).to(v.dtype))
+    return (_unheads(dq).to(out_dtype or q.dtype),
+            _unheads(dk).to(out_dtype or k.dtype),
+            _unheads(dv).to(out_dtype or v.dtype))
 
 
-def _bwd_fused(q, k, v, o, do, lse, num_heads: int, l_real: int
-               ) -> torch.Tensor:
-    """(dq | dk | dv) as one [b, Lp, 3*h*dh] tensor."""
+def _bwd_fused(q, k, v, o, do, lse, num_heads: int, lq_real: int,
+               lk_real: int, out_f32: bool = False) -> torch.Tensor:
+    """(dq | dk | dv) as one [b, Lp, 3*h*dh] tensor, in q's dtype or, with
+    `out_f32`, f32 (a ring step's parts, summed before they are rounded)."""
     global LAUNCHES_BWD
-    b, lp, hd, dh = _check_shapes(q, k, v, num_heads, l_real)
+    b, lp, hd, dh, lq, lk = _check_shapes(q, k, v, num_heads, None, lq_real,
+                                          lk_real)
+    out_dtype = torch.float32 if out_f32 else q.dtype
     if q.device.type == "cpu":
         return torch.cat(flash_mha_packed_bwd_ref(
-            q, k, v, o, do, lse, num_heads=num_heads, l_real=l_real), -1)
+            q, k, v, o, do, lse, num_heads=num_heads, lq_real=lq,
+            lk_real=lk, out_dtype=out_dtype), -1)
     do = do.to(o.dtype).contiguous()    # no copy for the DiT's cotangent
     _check_cuda("flash_mha_packed_bwd", q, dh, dict(q=q, k=k, v=v, o=o,
                                                     do=do), dict(lse=lse))
@@ -349,22 +403,22 @@ def _bwd_fused(q, k, v, o, do, lse, num_heads: int, l_real: int
                          f"{(b, lp, num_heads)}, got {tuple(lse.shape)}")
     _refuse_grad("flash_mha_packed_bwd", q, k, v, o, do)
     # the kernels read q~ (formed once here, as the forward rounds it), dO
-    # as given (TMA reads its rows >= l_real as 0) and lse / delta per
+    # as given (TMA reads its rows >= lq_real as 0) and lse / delta per
     # head, each through a TMA tensor map
     qs = _prescaled_q(q, dh)
     lse_h = _stats_by_head(lse)
-    delta_h = _delta_by_head(do, o, num_heads, l_real)
-    dqkv = torch.empty((b, lp, 3 * hd), dtype=q.dtype, device=q.device)
+    delta_h = _delta_by_head(do, o, num_heads, lq)
+    dqkv = torch.empty((b, lp, 3 * hd), dtype=out_dtype, device=q.device)
     dq, dk, dv = dqkv.chunk(3, dim=-1)
     lib = _build.load_library()
     err = lib.odgs_flash_attn_bwd_bf16(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse_h.data_ptr(), delta_h.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, lp, num_heads, dh, l_real, dh ** -0.5 * LOG2E,
+        dv.data_ptr(), b, lp, num_heads, dh, lk, lq, dh ** -0.5 * LOG2E,
         qs.stride(0), qs.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), do.stride(0), do.stride(1),
         dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
-        dv.stride(0), dv.stride(1),
+        dv.stride(0), dv.stride(1), int(out_f32),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_mha_packed_bwd")
     LAUNCHES_BWD += 1
@@ -372,16 +426,22 @@ def _bwd_fused(q, k, v, o, do, lse, num_heads: int, l_real: int
 
 
 def flash_mha_packed_bwd(q, k, v, o, do, lse, *, num_heads: int,
-                         l_real: int):
+                         l_real: int | None = None,
+                         lq_real: int | None = None,
+                         lk_real: int | None = None):
     """(dq, dk, dv) of `flash_mha_packed` from the stats forward's o and
     lse and the output cotangent do (pad rows may hold garbage: they are
-    masked).  Primal dtypes, rows >= l_real exactly 0.
+    masked).  Primal dtypes; dq rows >= lq_real and dk / dv rows >=
+    lk_real exactly 0.  `l_real` sets both extents; a ring step passes the
+    global o and lse of its query rows with the extents of its query shard
+    and its key slice (parallel/ring.py).
 
     CPU tensors: `flash_mha_packed_bwd_ref`.  CUDA tensors: the two
     sm_90a kernels of csrc/flash_attn_bwd.cu (bf16, dh 16, 32 or 64), whose
     three outputs are column slices of one fused [b, Lp, 3*h*dh] tensor.
     delta = rowsum(dO * O) is formed here in plain torch, as in JAX."""
-    return _bwd_fused(q, k, v, o, do, lse, num_heads, l_real).chunk(3, -1)
+    lq, lk = _check_shapes(q, k, v, num_heads, l_real, lq_real, lk_real)[4:]
+    return _bwd_fused(q, k, v, o, do, lse, num_heads, lq, lk).chunk(3, -1)
 
 
 class FlashMHAPacked(torch.autograd.Function):
@@ -402,8 +462,8 @@ class FlashMHAPacked(torch.autograd.Function):
     def backward(ctx, do):
         qkv, o, lse = ctx.saved_tensors
         q, k, v = qkv.chunk(3, dim=-1)
-        return (_bwd_fused(q, k, v, o, do, lse, ctx.num_heads, ctx.l_real),
-                None, None)
+        return (_bwd_fused(q, k, v, o, do, lse, ctx.num_heads, ctx.l_real,
+                           ctx.l_real), None, None)
 
 
 def flash_attention(qkv: torch.Tensor, *, num_heads: int, l_real: int

@@ -1,10 +1,11 @@
-"""Train step on one GPU: optimizer, gradient clipping, accumulation, EMA.
+"""Train step: optimizer, gradient clipping, accumulation, EMA, and the
+gradient reduction of data, sequence and ZeRO-1 parallelism.
 
-Counterpart of open_diffusiongs_tpu/parallel/train_step.py (without the
-mesh: the port trains on one device).  The reference trains with AdamW
-(lr 1e-5, betas (0.9, 0.99)), CosineAnnealingLR (T_max 500k, eta_min 1e-6),
-gradient_clip_val 0.5 and EMA decay 0.9999 (configs/diffusionGS_rel.yaml).
-One step is: loss -> backward -> clip -> update -> EMA of the new params.
+Counterpart of open_diffusiongs_tpu/parallel/train_step.py.  The reference
+trains with AdamW (lr 1e-5, betas (0.9, 0.99)), CosineAnnealingLR (T_max
+500k, eta_min 1e-6), gradient_clip_val 0.5 and EMA decay 0.9999
+(configs/diffusionGS_rel.yaml).  One step is: loss -> backward -> (reduce)
+-> clip -> update -> EMA of the new params.
 
 `Optimizer` reproduces the JAX package's optax chain
 MultiSteps(chain(clip_by_global_norm, adamw | adam | sgd)), where torch's
@@ -26,6 +27,30 @@ own classes differ from it:
     wins, prefixes may use dots or slashes.
 Updates are in place (torch idiom); the JAX train step returns new
 arrays instead.
+
+Several ranks (a parallel/mesh.py::Mesh with world > 1): the model is not
+wrapped in DistributedDataParallel (its `module.` prefix would rename the
+state-dict keys, and the seq axis' rule below needs the whole world).  At
+the step that applies an update (the last micro-step under accumulation:
+one reduction per update, of the same mean), each param group's gradient
+is flattened into one f32 bucket and averaged over all dp·sp ranks with
+one all-reduce; with seq ranks this gives the one-rank gradient, because
+the DiT's final gather sums the seq ranks' identical cotangents
+(parallel/ring.py).  The clip norm is then taken over the bucket's dp
+equal shards, each shard's sum of squares first and those in rank order,
+which is exactly what ZeRO-1 computes.
+
+`Zero1Optimizer` (trainer.zero1 with dp > 1; JAX's `_zero1_spec`,
+mesh.py:115-165, which shards opt_state and ema_params over `data`):
+each group's bucket is summed over the seq ranks, reduce-scattered over
+the data ranks into this rank's shard and averaged; the Adam moments and
+the EMA live only as shards; the clip norm is the all-gathered sum of the
+shards' squares; each rank updates its shard of the params and
+all-gathers them.  Every operation on an element is the one DDP applies
+to it, so with dp = 2 the params, EMA and moments equal DDP's bit for bit
+(a + b = b + a).  `state_dict()` gathers the shards into the one-rank
+layout (a collective: every rank calls it) and `load_state_dict` keeps
+this rank's shard, so checkpoints move across world sizes.
 """
 
 from __future__ import annotations
@@ -143,16 +168,82 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
+class _Flat:
+    """One param group's gradient bucket: its tensors flattened in order
+    into one f32 vector, zero-padded to dp equal shards of a multiple of
+    128 elements (so every shard starts as aligned as a fresh tensor, and a
+    reduction over a shard runs as it runs over ZeRO-1's own copy)."""
+
+    ALIGN = 128
+
+    def __init__(self, params: List[torch.Tensor], dp: int):
+        for p in params:
+            if p.dtype != torch.float32:
+                raise TypeError(f"gradient buckets take f32 params, got "
+                                f"{p.dtype}")
+        self.shapes = [p.shape for p in params]
+        self.numels = [p.numel() for p in params]
+        self.n = sum(self.numels)
+        per = -(-self.n // dp)
+        self.shard_len = -(-per // self.ALIGN) * self.ALIGN
+        self.total = self.shard_len * dp
+
+    def flatten(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        out = torch.zeros(self.total, dtype=torch.float32,
+                          device=tensors[0].device)
+        for view, t in zip(self.views(out), tensors):
+            view.copy_(t.detach())
+        return out
+
+    def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        out, off = [], 0
+        for shape, n in zip(self.shapes, self.numels):
+            out.append(flat[off:off + n].view(shape))
+            off += n
+        return out
+
+    def shard(self, flat: torch.Tensor, r: int) -> torch.Tensor:
+        return flat[r * self.shard_len:(r + 1) * self.shard_len]
+
+    def shard_of(self, tensors: List[torch.Tensor], r: int,
+                 device=None) -> torch.Tensor:
+        """`shard(flatten(tensors), r)` as a new tensor on `device` (the
+        tensors' own by default), copied from the parts of `tensors` that
+        fall in shard r only: no whole flat copy."""
+        lo, hi = r * self.shard_len, (r + 1) * self.shard_len
+        out = torch.zeros(self.shard_len, dtype=torch.float32,
+                          device=device or tensors[0].device)
+        off = 0
+        for t, n in zip(tensors, self.numels):
+            a, b = max(lo, off), min(hi, off + n)
+            if a < b:
+                out[a - lo:b - lo].copy_(
+                    t.detach().reshape(-1)[a - off:b - off])
+            off += n
+        return out
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x * x)
+
+
+def _clip_scale(norm: torch.Tensor, clip: float) -> torch.Tensor:
+    return torch.where(norm < clip, 1.0, clip / norm)
+
+
 class Optimizer:
     """The optax-semantics optimizer over named parameters (module
     docstring).  `step()` reads each parameter's .grad (None = zeros) and
-    returns whether an update was applied."""
+    returns whether an update was applied.  With a `mesh` of several ranks
+    it averages the gradient over them first (DDP) and keeps the norm it
+    clipped with in `grad_norm`."""
 
     KINDS = {"AdamW": "adamw", "FusedAdam": "adamw", "Adam": "adam",
              "Adan": "adam", "SGD": "sgd"}
 
     def __init__(self, cfg: OptimizerConfig,
-                 named_params: Iterable[Tuple[str, torch.Tensor]]):
+                 named_params: Iterable[Tuple[str, torch.Tensor]],
+                 mesh=None):
         if cfg.name not in self.KINDS:
             raise ValueError(f"unknown optimizer {cfg.name}")
         self.cfg = cfg
@@ -180,6 +271,11 @@ class Optimizer:
         self._mu: Dict[int, torch.Tensor] = {}
         self._nu: Dict[int, torch.Tensor] = {}
         self._acc: Optional[List[torch.Tensor]] = None
+        # several ranks: one bucket layout per group, sharded over dp
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.grad_norm: Optional[torch.Tensor] = None
+        self._flats = ([_Flat(g.params, self.mesh.dp) for g in self.groups]
+                       if self.mesh is not None else None)
 
     @staticmethod
     def _label(name: str, gcfgs: Dict[str, OptimizerConfig]) -> str:
@@ -198,15 +294,24 @@ class Optimizer:
     def state_dict(self) -> Dict[str, Any]:
         """The update count, the accumulation position and the Adam
         moments / gradient accumulator by parameter name (tensors are
-        the optimizer's own, not copies)."""
+        the optimizer's own, not copies; under several ranks a
+        mid-accumulation accumulator is averaged over them, which is
+        exact: the reduction is linear)."""
         def by_name(store):
             return {n: store[id(p)] for n, p in zip(self.names, self.params)
                     if id(p) in store}
-        acc = (None if self._acc is None
-               else dict(zip(self.names, self._acc)))
         return {"count": self.count, "mini_step": self.mini_step,
                 "mu": by_name(self._mu), "nu": by_name(self._nu),
-                "acc": acc}
+                "acc": self._acc_state()}
+
+    def _acc_state(self):
+        if self._acc is None:
+            return None
+        acc = self._acc
+        if self.mesh is not None:
+            acc = [self.mesh.all_reduce_(a.clone(), "world")
+                   .div_(self.mesh.world) for a in acc]
+        return dict(zip(self.names, acc))
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restore `state_dict()`'s output; tensors are copied onto each
@@ -218,8 +323,11 @@ class Optimizer:
                     for n, t in sd["mu"].items()}
         self._nu = {id(index[n]): t.to(index[n].device, copy=True)
                     for n, t in sd["nu"].items()}
-        self._acc = (None if sd["acc"] is None else
-                     [sd["acc"][n].to(p.device, copy=True)
+        self._load_acc(sd["acc"])
+
+    def _load_acc(self, acc) -> None:
+        self._acc = (None if acc is None else
+                     [acc[n].to(p.device, copy=True)
                       for n, p in zip(self.names, self.params)])
 
     def zero_grad(self) -> None:
@@ -233,7 +341,8 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> bool:
         """`grad_norm`: the global norm of the current .grads, when the
-        caller has it already (reused for clipping without accumulation)."""
+        caller has it already (reused for clipping without accumulation
+        on one rank; several ranks clip with the reduced gradient's)."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         k = self.cfg.accumulate_grad_batches
@@ -245,17 +354,23 @@ class Optimizer:
                 acc.add_((g - acc) / n)
             self.mini_step += 1
             if self.mini_step < k:
+                if self.mesh is not None:   # this micro-step's own norm
+                    self.grad_norm = global_norm(grads)
                 return False
             grads, grad_norm = self._acc, None
-        clip = self.cfg.grad_clip
-        if clip and clip > 0:
-            norm = global_norm(grads) if grad_norm is None else grad_norm
-            # in place and on the device: no host sync, no second copy
-            torch._foreach_mul_(grads, torch.where(norm < clip, 1.0,
-                                                   clip / norm))
         index = {id(p): i for i, p in enumerate(self.params)}
-        for group in self.groups:
-            self._update(group, [grads[index[id(p)]] for p in group.params])
+        by_group = [[grads[index[id(p)]] for p in g.params]
+                    for g in self.groups]
+        if self.mesh is None:
+            clip = self.cfg.grad_clip
+            if clip and clip > 0:
+                norm = global_norm(grads) if grad_norm is None else grad_norm
+                # in place and on the device: no host sync, no second copy
+                torch._foreach_mul_(grads, _clip_scale(norm, clip))
+            for group, g in zip(self.groups, by_group):
+                self._update(group, g)
+        else:
+            self._step_ranks(by_group)
         self.count += 1
         if k > 1:
             self.mini_step = 0
@@ -263,16 +378,42 @@ class Optimizer:
                 acc.zero_()
         return True
 
+    def _step_ranks(self, by_group: List[List[torch.Tensor]]) -> None:
+        """DDP: average each group's bucket over the world, clip with the
+        sharded norm, update every param (replicated moments)."""
+        mesh = self.mesh
+        flats = []
+        for lay, g in zip(self._flats, by_group):
+            flat = mesh.all_reduce_(lay.flatten(g), "world")
+            flats.append(flat.div_(mesh.world))
+        partials = torch.stack([
+            torch.stack([_sum_sq(lay.shard(f, r))
+                         for lay, f in zip(self._flats, flats)])
+            for r in range(mesh.dp)])                      # [dp, groups]
+        self.grad_norm = torch.sqrt(partials.sum())
+        clip = self.cfg.grad_clip
+        for group, lay, flat in zip(self.groups, self._flats, flats):
+            if clip and clip > 0:
+                flat.mul_(_clip_scale(self.grad_norm, clip))
+            self._update(group, lay.views(flat))
+
     def _update(self, group: _Group, grads: List[torch.Tensor]) -> None:
-        params = group.params
+        mu = nu = None
+        if self.kind != "sgd":
+            mu = [self._mu.setdefault(id(p), torch.zeros_like(p))
+                  for p in group.params]
+            nu = [self._nu.setdefault(id(p), torch.zeros_like(p))
+                  for p in group.params]
+        self._apply(group, group.params, grads, mu, nu)
+
+    def _apply(self, group: _Group, params, grads, mu, nu) -> None:
+        """One update of `params` (lists of tensors, elementwise)."""
         neg_lr = -group.lr(self.count)
         if self.kind == "sgd":
             torch._foreach_add_(params, torch._foreach_mul(grads, neg_lr))
             return
         c = group.cfg
         b1, b2 = c.betas
-        mu = [self._mu.setdefault(id(p), torch.zeros_like(p)) for p in params]
-        nu = [self._nu.setdefault(id(p), torch.zeros_like(p)) for p in params]
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g² + b2 nu
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
@@ -293,12 +434,102 @@ class Optimizer:
         torch._foreach_add_(params, upd)
 
 
+class Zero1Optimizer(Optimizer):
+    """ZeRO-1 over the data ranks of `mesh` (module docstring): the Adam
+    moments are this rank's flat shard per param group (`_mu_s`, `_nu_s`,
+    created at the first update as the one-rank moments are), the params
+    stay whole on every rank."""
+
+    def __init__(self, cfg: OptimizerConfig,
+                 named_params: Iterable[Tuple[str, torch.Tensor]], mesh):
+        if mesh is None or mesh.dp < 2:
+            raise ValueError("ZeRO-1 shards over two or more data ranks")
+        super().__init__(cfg, named_params, mesh)
+        self._mu_s: Optional[List[torch.Tensor]] = None
+        self._nu_s: Optional[List[torch.Tensor]] = None
+
+    def param_shards(self) -> List[torch.Tensor]:
+        """This rank's shard of each group's params, flat f32 copies."""
+        r = self.mesh.data_rank
+        return [lay.shard_of(g.params, r)
+                for lay, g in zip(self._flats, self.groups)]
+
+    def gather_named(self, shards: List[torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Per-group shards -> {name: whole tensor} (a collective)."""
+        by_id = {}
+        for lay, g, sh in zip(self._flats, self.groups, shards):
+            full = self.mesh.all_gather(sh, "data")
+            for p, v in zip(g.params, lay.views(full)):
+                by_id[id(p)] = v.clone()
+        return {n: by_id[id(p)] for n, p in zip(self.names, self.params)}
+
+    def shards_from_named(self, named: Dict[str, torch.Tensor]
+                          ) -> List[torch.Tensor]:
+        """{name: whole tensor} -> this rank's per-group shards."""
+        index = dict(zip(self.names, self.params))
+        pos = {id(p): n for n, p in index.items()}
+        r = self.mesh.data_rank
+        return [lay.shard_of([named[pos[id(p)]] for p in g.params], r,
+                             device=g.params[0].device)
+                for lay, g in zip(self._flats, self.groups)]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """As `Optimizer.state_dict`, the moment shards gathered into whole
+        tensors by name (a collective)."""
+        moments = {}
+        for key, shards in (("mu", self._mu_s), ("nu", self._nu_s)):
+            moments[key] = {} if shards is None else self.gather_named(shards)
+        return {"count": self.count, "mini_step": self.mini_step,
+                **moments, "acc": self._acc_state()}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.count = int(sd["count"])
+        self.mini_step = int(sd["mini_step"])
+        self._mu_s = (self.shards_from_named(sd["mu"]) if sd["mu"]
+                      else None)
+        self._nu_s = (self.shards_from_named(sd["nu"]) if sd["nu"]
+                      else None)
+        self._load_acc(sd["acc"])
+
+    def _step_ranks(self, by_group: List[List[torch.Tensor]]) -> None:
+        mesh, r = self.mesh, self.mesh.data_rank
+        shards = []
+        for lay, g in zip(self._flats, by_group):
+            flat = mesh.all_reduce_(lay.flatten(g), "seq")
+            shards.append(mesh.reduce_scatter(flat, "data").div_(mesh.world))
+        mine = torch.stack([_sum_sq(sh) for sh in shards])
+        partials = mesh.all_gather(mine[None], "data")     # [dp, groups]
+        self.grad_norm = torch.sqrt(partials.sum())
+        clip = self.cfg.grad_clip
+        if self.kind != "sgd" and self._mu_s is None:
+            self._mu_s = [torch.zeros_like(sh) for sh in shards]
+            self._nu_s = [torch.zeros_like(sh) for sh in shards]
+        for gi, (group, lay, sh) in enumerate(zip(self.groups, self._flats,
+                                                  shards)):
+            if clip and clip > 0:
+                sh.mul_(_clip_scale(self.grad_norm, clip))
+            p_sh = lay.shard_of(group.params, r)
+            mu = nu = None
+            if self.kind != "sgd":
+                mu, nu = [self._mu_s[gi]], [self._nu_s[gi]]
+            self._apply(group, [p_sh], [sh], mu, nu)
+            full = mesh.all_gather(p_sh, "data")
+            for p, v in zip(group.params, lay.views(full)):
+                p.copy_(v)
+
+
 def make_optimizer(cfg: OptimizerConfig,
-                   named_params: Iterable[Tuple[str, torch.Tensor]]
-                   ) -> Optimizer:
+                   named_params: Iterable[Tuple[str, torch.Tensor]],
+                   mesh=None, zero1: bool = False) -> Optimizer:
     """Name-based optimizer / scheduler parsing (utils/scheduler.py:34-104)
-    over `named_params` (e.g. `model.named_parameters()`)."""
-    return Optimizer(cfg, named_params)
+    over `named_params` (e.g. `model.named_parameters()`).  `mesh`: the
+    ranks to average over; `zero1` shards the optimizer state over its
+    data ranks when there are two or more (with one it shards nothing, as
+    in JAX)."""
+    if zero1 and mesh is not None and mesh.dp > 1:
+        return Zero1Optimizer(cfg, named_params, mesh)
+    return Optimizer(cfg, named_params, mesh)
 
 
 @dataclasses.dataclass
@@ -306,11 +537,39 @@ class TrainState:
     step: int
     params: Dict[str, torch.Tensor]
     optimizer: Optimizer
-    ema_params: Optional[Dict[str, torch.Tensor]]   # None: EMA disabled
+    ema_params: Optional[Dict[str, torch.Tensor]]   # None: no whole EMA
+    # ZeRO-1: this rank's EMA shard per param group (ema_params is None)
+    ema_shard: Optional[List[torch.Tensor]] = None
+
+    @property
+    def has_ema(self) -> bool:
+        return self.ema_params is not None or self.ema_shard is not None
+
+    def full_ema(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA by name, whole (ZeRO-1 shards gathered: a collective)."""
+        if self.ema_shard is not None:
+            return self.optimizer.gather_named(self.ema_shard)
+        return self.ema_params
+
+    @torch.no_grad()
+    def load_ema(self, named: Dict[str, torch.Tensor]) -> None:
+        """Copy a whole EMA by name in (keeping this rank's shard)."""
+        if self.ema_shard is not None:
+            self.ema_shard = self.optimizer.shards_from_named(named)
+            return
+        if set(named) != set(self.ema_params):
+            raise KeyError("ema_params: checkpoint keys differ from the "
+                           "state's")
+        for k, t in self.ema_params.items():
+            t.copy_(named[k])
 
 
 def init_train_state(params: Dict[str, torch.Tensor], optimizer: Optimizer,
                      ema_decay: Optional[float] = 0.9999) -> TrainState:
+    if ema_decay and isinstance(optimizer, Zero1Optimizer):
+        return TrainState(step=0, params=dict(params), optimizer=optimizer,
+                          ema_params=None,
+                          ema_shard=optimizer.param_shards())
     ema = ({k: p.detach().clone() for k, p in params.items()}
            if ema_decay else None)
     return TrainState(step=0, params=dict(params), optimizer=optimizer,
@@ -322,24 +581,35 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     """loss_fn(batch, step) -> (loss, metrics).
 
     Returns `train_step(state, batch) -> (state, metrics)`: loss, backward,
-    clip + update (`optimizer`), then the EMA of the NEW params,
-    e <- e·d + p·(1 - d).  The state is updated in place; metrics gain
-    `grad_norm` (the global norm of this step's raw gradients) and stay
-    device tensors (no host sync)."""
+    (reduce over the ranks,) clip + update (`optimizer`), then the EMA of
+    the NEW params, e <- e·d + p·(1 - d).  The state is updated in place;
+    metrics gain `grad_norm` and stay device tensors (no host sync).  On
+    one rank grad_norm is the global norm of this step's raw gradients;
+    on several, that of the reduced gradient the update clipped with (of
+    this rank's raw micro-gradient at a micro-step without an update).
+    Metrics are this rank's: Mesh.mean_metrics averages them."""
     d = _f32(ema_decay) if ema_decay else None
 
     def train_step(state: TrainState, batch):
         loss, metrics = loss_fn(batch, state.step)
         optimizer.zero_grad()
         loss.backward()
-        grads = [p.grad for p in state.params.values() if p.grad is not None]
         metrics = dict(metrics)
-        metrics["grad_norm"] = global_norm(grads).detach()
-        optimizer.step(metrics["grad_norm"])
-        if state.ema_params is not None and d is not None:
+        if optimizer.mesh is None:
+            grads = [p.grad for p in state.params.values()
+                     if p.grad is not None]
+            metrics["grad_norm"] = global_norm(grads).detach()
+            optimizer.step(metrics["grad_norm"])
+        else:
+            optimizer.step()
+            metrics["grad_norm"] = optimizer.grad_norm
+        if d is not None and state.has_ema:
             with torch.no_grad():
-                ema = list(state.ema_params.values())
-                new = [state.params[k] for k in state.ema_params]
+                if state.ema_shard is not None:
+                    ema, new = state.ema_shard, optimizer.param_shards()
+                else:
+                    ema = list(state.ema_params.values())
+                    new = [state.params[k] for k in state.ema_params]
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, torch._foreach_mul(
                     new, _f32(1.0 - d)))

@@ -86,13 +86,16 @@ def raster_config(cfg: Dict[str, Any], ignored: Optional[list] = None
 
 def build_system(system_type: str, system_cfg: Dict[str, Any],
                  bf16: bool = True, raster: Optional[RasterizeConfig] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
     """system_type: 'diffusion-gs-system' | 'diffusion-gs-scene-system'
     (the scene system's DiT defaults to the `plk` ray PE and its config
     takes save_intermediate_video / save_result_for_eval, JAX
     builder.py:85-88, :116-119).  Returns the system with its
     (uninitialized) model on `device`: call `init_params`, then
-    `load_pretrained` (the config's weight bootstraps)."""
+    `load_pretrained` (the config's weight bootstraps).  `mesh`
+    (parallel/mesh.py::Mesh): the run's ranks; a seq ring of sp > 1 goes to
+    the DiT as shape_model's `seq`, as JAX threads sp_mesh
+    (builder.py:79-82), and the system draws per data rank."""
     from .. import find
     from .object_system import ObjectSystemConfig
     from .scene_system import SCENE_SYSTEM, SceneSystemConfig
@@ -103,6 +106,8 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
     noise = dict(cfg.get("noise_scheduler", {}))
     sm = shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
                             ignored=ignored)
+    if mesh is not None and mesh.sp > 1:
+        sm["seq"] = mesh
     scene = system_type == SCENE_SYSTEM
     if scene:
         sm.setdefault("ray_pe_type", "plk")
@@ -141,7 +146,7 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
         log.info("open_diffusiongs_tpu_torch: ignoring TPU-only config keys: "
                  "%s", ", ".join(ignored))
     cfg_cls = SceneSystemConfig if scene else ObjectSystemConfig
-    return find(system_type)(cfg_cls(**kwargs), device=device)
+    return find(system_type)(cfg_cls(**kwargs), device=device, mesh=mesh)
 
 
 def build_optimizer_config(system_cfg: Dict[str, Any],

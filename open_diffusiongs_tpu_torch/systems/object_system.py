@@ -72,9 +72,12 @@ class ObjectSystem:
     image -> Gaussians generation (pipline_obj.py:297-306)."""
 
     def __init__(self, cfg: ObjectSystemConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cpu", mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        # parallel/mesh.py::Mesh of the run (None: one rank); its seq ring,
+        # if any, reaches the DiT through cfg.shape_model["seq"]
+        self.mesh = mesh
         # built without storage; init_params / load_state_dict fill it
         with torch.device("meta"):
             model = DGSDenoiser(**dict(cfg.shape_model))
@@ -152,8 +155,12 @@ class ObjectSystem:
         render every supervision view; the loss sums the terms weighted by
         C(lambda, step).  `noise` [b, v, 3, h, w] and `t` [b] replace the
         draws from `generator` when given (parity tests inject the JAX
-        package's draws).  Returns (loss, metrics) with the unweighted
-        terms, psnr and the render's overflow counters."""
+        package's draws).  Under data parallelism `batch` is this data
+        rank's slice of the global batch: the generator draws the global
+        batch's noise and t (in that order, as one rank would) and this
+        rank takes its rows, so dp ranks see the draws of one.  Returns
+        (loss, metrics) with the unweighted terms, psnr and the render's
+        overflow counters."""
         cfg = self.cfg
         if self._lpips_missing and C_max(cfg.lambda_lpips) > 0:
             raise RuntimeError(
@@ -168,12 +175,16 @@ class ObjectSystem:
         dev = images.device
         ray_o, ray_d = rays_chw(batch["c2ws_input"],
                                 batch["fxfycxcys_input"], h, w)
+        dp, d = ((1, 0) if self.mesh is None
+                 else (self.mesh.dp, self.mesh.data_rank))
+        rows = slice(d * b, (d + 1) * b)
         if noise is None:
-            noise = torch.randn(images.shape, generator=generator,
-                                dtype=torch.float32, device=dev)
+            noise = torch.randn((dp * b, *images.shape[1:]),
+                                generator=generator, dtype=torch.float32,
+                                device=dev)[rows]
         if t is None:
-            t = torch.randint(0, cfg.num_train_timesteps, (b,),
-                              generator=generator, device=dev)
+            t = torch.randint(0, cfg.num_train_timesteps, (dp * b,),
+                              generator=generator, device=dev)[rows]
         noisy = q_sample(self.sched_train, images[:, 1:], t, noise[:, 1:])
         x = torch.cat([images[:, :1], noisy], dim=1)
 

@@ -77,11 +77,21 @@ class CheckpointManager:
     EMA) saved every `every_n_train_steps` steps as `<directory>/<step>.pt`
     with `torch.save`; every periodic checkpoint is kept (the reference's
     save_top_k = -1).  `restore` copies into an existing state in place,
-    bit for bit."""
+    bit for bit.
 
-    def __init__(self, directory: str, every_n_train_steps: int = 1000):
+    With a `mesh` of several ranks every rank calls `maybe_save` (ZeRO-1's
+    moment and EMA shards are gathered first, a collective) and rank 0
+    alone writes, between barriers; every rank restores, keeping its own
+    shard.  The file is the one-rank layout either way, so a checkpoint
+    moves across world sizes."""
+
+    def __init__(self, directory: str, every_n_train_steps: int = 1000,
+                 mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_main
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.every_n = max(1, int(every_n_train_steps))
 
     def all_steps(self) -> list:
@@ -99,19 +109,28 @@ class CheckpointManager:
         step = int(state.step if step is None else step)
         if not force and step % self.every_n != 0:
             return False
-        if step in self.all_steps():
+        saved = step in self.all_steps()
+        self._barrier()      # every rank has looked before rank 0 writes
+        if saved:
             return False
         path = os.path.join(self.directory, f"{step}.pt")
 
         def plain(tensors):
             return (None if tensors is None else
                     {k: t.detach() for k, t in tensors.items()})
-        torch.save({"format": FORMAT, "step": step,
-                    "params": plain(state.params),
-                    "optimizer": state.optimizer.state_dict(),
-                    "ema_params": plain(state.ema_params)}, path + ".tmp")
-        os.replace(path + ".tmp", path)
+        whole = {"format": FORMAT, "step": step,
+                 "params": plain(state.params),
+                 "optimizer": state.optimizer.state_dict(),
+                 "ema_params": plain(state.full_ema())}
+        if self.writes:
+            torch.save(whole, path + ".tmp")
+            os.replace(path + ".tmp", path)
+        self._barrier()
         return True
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, state_like: TrainState,
                 step: Optional[int] = None) -> TrainState:
@@ -122,17 +141,16 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         ckpt = _torch_load(os.path.join(self.directory, f"{step}.pt"))
-        if (ckpt["ema_params"] is None) != (state_like.ema_params is None):
+        if (ckpt["ema_params"] is None) != (not state_like.has_ema):
             raise ValueError("checkpoint and state disagree on EMA")
         with torch.no_grad():
-            for name, store in (("params", state_like.params),
-                                ("ema_params", state_like.ema_params or {})):
-                src = ckpt[name] or {}
-                if set(src) != set(store):
-                    raise KeyError(f"{name}: checkpoint keys differ from "
-                                   f"the state's")
-                for k, t in store.items():
-                    t.copy_(src[k])
+            if set(ckpt["params"]) != set(state_like.params):
+                raise KeyError("params: checkpoint keys differ from the "
+                               "state's")
+            for k, t in state_like.params.items():
+                t.copy_(ckpt["params"][k])
+        if state_like.has_ema:
+            state_like.load_ema(ckpt["ema_params"])
         state_like.optimizer.load_state_dict(ckpt["optimizer"])
         state_like.step = int(ckpt["step"])
         return state_like

@@ -8,8 +8,9 @@ log_every_n_steps = 100 so that only the first step after the restart
 logs; the fixed-batch eval right after the restore equals the eval at the
 save bit for bit; a restored state equals the saved one bit for bit;
 --export writes PLY, PNG and AVI; --validate writes its grids and
-val_metrics.json; the parallelism keys raise; without `--device cpu` and
-with no card the CLI raises.
+val_metrics.json; the parallelism keys that are not ported raise and
+seq_parallel must divide the world size; without `--device cpu` and with
+no card the CLI raises.
 """
 
 import csv
@@ -229,16 +230,23 @@ def test_test_mode_keeps_its_own_dir(trained, tree):
 @pytest.mark.parametrize("key", ["model_parallel", "seq_parallel",
                                  "pipe_parallel"])
 def test_parallelism_keys_raise(tree, key):
+    """Tensor and pipeline parallelism are not ported; seq_parallel=2 is,
+    and on one process it does not divide the world size."""
     _, cfg = tree
-    with pytest.raises(NotImplementedError, match=f"trainer.{key}"):
+    err, match = ((ValueError, "world size 1") if key == "seq_parallel"
+                  else (NotImplementedError, f"trainer.{key}"))
+    with pytest.raises(err, match=match):
         launch.main(["--config", cfg, "--train", "--max_steps", "1",
                      "--device", "cpu", f"trainer.{key}=2"])
 
 
 def test_zero1_raises_with_more_than_one_data_rank():
-    mesh.check_parallelism({"zero1": True})          # one rank: nothing
-    with pytest.raises(NotImplementedError, match="trainer.zero1"):
-        mesh.check_parallelism({"zero1": True}, n_data=2)
+    """ZeRO-1 is ported: check_parallelism accepts it with one data rank
+    and with two, alone and beside a seq ring."""
+    assert mesh.check_parallelism({"zero1": True}) == (1, 1)
+    assert mesh.check_parallelism({"zero1": True}, world_size=2) == (2, 1)
+    assert mesh.check_parallelism({"zero1": True, "seq_parallel": 2},
+                                  world_size=4) == (2, 2)
 
 
 def test_launch_raises_without_a_card(tree, monkeypatch):
