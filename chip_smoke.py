@@ -284,6 +284,27 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   restores on one process bit for bit; each world's
                   seconds per step beside the one-process step, labelled
                   as two processes sharing one card, not as scaling.
+  18. tensor and pipeline parallelism, serving over data ranks: two ranks
+      sharing the card over gloo (spawned, `parallel18_rank`), on
+      configs/diffusionGS_rel.yaml at 256^2, b = 4, against the
+      one-process step and an f32 step (rank 0 runs both first):
+               i. tp = 2: loss rel 1e-4; the gradients and the update
+                  (every rank's part put together) no further from the f32
+                  step than the one-process step is, beyond 1e-2 (17b's
+                  yardstick); per rank 48 #1s and 24 #3 a step on 8 heads;
+                  the bytes summed over `model` a step equal to 6 x layers
+                  [4, 4098, 1024] bf16 tensors; parameter and Adam moment
+                  bytes per rank;
+               ii. pp = 2 (12 layers a stage, two microbatches of 2): the
+                  same gates, 48 #1s and 24 #3 per rank a step;
+               iii. dp = 2 serving: DiffusionGSPipeline.batch(mesh=) of
+                  two images, each element's renders >= 50 dB PSNR against
+                  the one-process batch of both (xyz rel-max and the
+                  bit-equal share printed); 720 #1 and 91 #2 per rank;
+                  both ranks return the same whole list;
+               each case's seconds per step beside the one-process step,
+               labelled as two processes sharing one card, not as
+               scaling.  ZeRO-1 x tp = 2 (four ranks) is a CPU test only.
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -3957,6 +3978,263 @@ def par_gates(dp: dict, sp: dict, ln: dict) -> None:
                              f"{ln['restored_equal']}")
 
 
+# phase 18: tensor and pipeline parallelism and serving over data ranks
+PAR18_LOSS_REL = 1e-4        # the tp / pp step's loss against one process
+SERVE_PSNR_DB = 50.0         # each served element's renders, dp = 2 vs one
+SERVE_IMAGES = (IMAGE, os.path.join(ROOT, "extra_files", "test_cases",
+                                    "torus.png"))
+PAR18_TIMEOUT = 420
+
+
+def par_whole(mesh, named: dict) -> dict:
+    """Every rank's part of `named` put together into whole tensors by
+    the reference's names (parallel/shard.py: a collective)."""
+    from open_diffusiongs_tpu_torch.parallel.shard import gather_state_dict
+    return gather_state_dict({k: v.detach() for k, v in named.items()}, mesh)
+
+
+def par_sharded_step(torch, dev, mesh, ref, f32, batch) -> dict:
+    """18 i-ii: two steps of a tp = 2 or pp = 2 world on the whole batch
+    from the one-process init and draws; the first step's gradients and
+    update (every rank's part put together) against the one-process step
+    and the f32 step; launches, sums over `model` and bytes per rank."""
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.parallel import tensor_parallel
+    _, system, state, step_fn = par_setup(torch, dev, CONFIG, mesh)
+    stack = system.model.transformer
+    res = {"layers_per_rank": len(stack),
+           "heads_per_rank": sorted({b.attn.num_heads for b in stack}),
+           "packed": all(b.attn.packed for b in stack),
+           "param_bytes_per_rank": 4 * sum(p.numel() for p in
+                                           state.params.values())}
+
+    def first(st):
+        res["step_launches"] = {
+            f"{m.__name__.rsplit('.', 1)[1]}.{n}": v
+            for m in (attention, blend_kernel)
+            for n, v in launch_counts(m).items() if v}
+        res["model_sum_bytes"] = tensor_parallel.BYTES
+        grads = par_whole(mesh, {k: p.grad for k, p in st.params.items()})
+        params = par_whole(mesh, st.params)
+        if ref is not None:
+            mine = par_compare(torch, f32, params, grads)
+            one = par_compare(torch, f32, ref["p1"], ref["grads"])
+            res["vs_one_process"] = summary(par_compare(torch, ref, params,
+                                                        grads))
+            res["vs_f32"], res["one_process_vs_f32"] = summary(mine), \
+                summary(one)
+            res["excess_over_one_process_vs_f32"] = excess_error(mine, one)
+        del grads, params
+        collect_garbage()
+        torch.cuda.empty_cache()
+    reset_launches(attention, blend_kernel)
+    tensor_parallel.BYTES = 0
+    res["steps"] = par_steps(torch, state, step_fn, batch, 2, first)
+    mu = state.optimizer.state_dict()["mu"]
+    res["adam_moment_bytes_per_rank"] = 2 * 4 * sum(v.numel()
+                                                    for v in mu.values())
+    mb = 2 if mesh.pp > 1 else 1          # GPipe's microbatches
+    res["expected_step_launches"] = {
+        "attention.LAUNCHES_STATS": 2 * len(stack) * mb,
+        "attention.LAUNCHES_BWD": len(stack) * mb}
+    # block checkpointing: each layer's proj and fc2 sums twice forward,
+    # its qkv and fc1 input sums once backward, each a [b, L, d] bf16
+    d = system.model.width
+    res["expected_model_sum_bytes"] = (
+        0 if mesh.tp == 1 else
+        6 * len(stack) * TRAIN_BATCH * (2 + N_VIEWS * (RES // 8) ** 2)
+        * d * 2)
+    del system, state, step_fn, mu
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_serve(torch, dev, mesh) -> dict:
+    """18 iii: `DiffusionGSPipeline.batch` of two images over dp = 2 data
+    ranks against the one-process batch of both (rank 0 runs it first)."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    from open_diffusiongs_tpu_torch.systems.builder import build_system
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, makedirs=False)
+    system = build_system(cfg.system_type, cfg.system, device=dev, mesh=mesh)
+    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    pipe = DiffusionGSPipeline(system)
+    kw = dict(resolution=RES, n_views=N_VIEWS, matting="border", seed=0)
+    ref = (pipe.batch(list(SERVE_IMAGES), **kw) if mesh.rank == 0
+           else None)
+    mesh.barrier()
+    pipe.batch(list(SERVE_IMAGES), mesh=mesh, **kw)          # warm-up
+    reset_launches(attention, blend_kernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pipe.batch(list(SERVE_IMAGES), mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    res = {"seconds_per_bundle": time.perf_counter() - t0,
+           "launches_per_rank": {
+               "attention": attention.LAUNCHES,
+               "blend": blend_kernel.LAUNCHES},
+           "expected_launches_per_rank": {
+               "attention": len(system.model.transformer) * STEPS,
+               "blend": (STEPS - 1) * (N_VIEWS - 1) + N_VIEWS},
+           "elements": len(outs),
+           "render_sums": [float(np.sum(o.renders, dtype=np.float64))
+                           for o in outs]}
+    for o in outs:
+        check_asset(o, RES)
+    if ref is not None:
+        res["psnr_db"] = [psnr(o.renders, r.renders)
+                          for o, r in zip(outs, ref)]
+        res["xyz_rel_max"] = [
+            float(np.abs(o.gaussians.xyz - r.gaussians.xyz).max()
+                  / np.abs(r.gaussians.xyz).max()) for o, r in zip(outs, ref)]
+        res["renders_bit_equal_fraction"] = [
+            float(np.mean(o.renders == r.renders)) for o, r in zip(outs, ref)]
+    del system, pipe, outs, ref
+    collect_garbage()
+    torch.cuda.empty_cache()
+    return res
+
+
+def parallel18_rank(rank: int, init: str, tmp: str) -> None:
+    """One of phase 18's two ranks (a spawned process sharing card 0):
+    its results go to <tmp>/rank<rank>.json, a failure's traceback too."""
+    import traceback
+
+    import torch
+    sys.path.insert(0, ROOT)
+    out = {}
+    try:
+        from open_diffusiongs_tpu_torch.parallel import mesh as mesh_lib
+        dev = torch.device("cuda", 0)
+        kw = dict(device_type="cuda", backend="gloo", init_method=init,
+                  rank=rank, world_size=2, local_rank=rank, local_world=2)
+        batch = train_batch(torch, dev, TRAIN_BATCH, RES)
+        ref = f32 = None
+        if rank == 0:
+            ref = par_reference(torch, dev, CONFIG, batch)
+            f32 = par_reference(torch, dev, CONFIG, batch, f32=True,
+                                steps=1)
+            out["one_process_steps"] = ref["steps"]
+            out["f32_steps"] = f32["steps"]
+        mesh = mesh_lib.init_mesh(model_parallel=2, **kw)
+        mesh.barrier()
+        out["tp2"] = par_sharded_step(torch, dev, mesh, ref, f32, batch)
+        mesh = mesh_lib.init_mesh(pipe_parallel=2, **kw)
+        out["pp2"] = par_sharded_step(torch, dev, mesh, ref, f32, batch)
+        del ref, f32
+        collect_garbage()
+        torch.cuda.empty_cache()
+        out["dp2_serving"] = par_serve(torch, dev, mesh_lib.init_mesh(**kw))
+        out["staged_transfers"] = mesh_lib.STAGED
+        mesh.barrier()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+
+
+def phase_parallel18(torch, dev, tmp: str) -> dict:
+    """18: two ranks on the one card over gloo: tp = 2 and pp = 2 train
+    steps and dp = 2 serving (module docstring)."""
+    import torch.multiprocessing as mp
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=parallel18_rank, args=(r, init, tmp))
+             for r in (0, 1)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    while (any(p.is_alive() for p in procs)
+           and not any(p.exitcode for p in procs)
+           and time.perf_counter() - t0 < PAR18_TIMEOUT):
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    world_s = time.perf_counter() - t0
+    outs = []
+    for r in (0, 1):
+        path = os.path.join(tmp, f"rank{r}.json")
+        outs.append(json.load(open(path)) if os.path.exists(path) else {})
+    errors = [o.get("error") for o in outs if o.get("error")]
+    if errors or any(p.exitcode for p in procs) or not all(outs):
+        raise AssertionError(f"18: a rank failed (exit codes "
+                             f"{[p.exitcode for p in procs]}):\n"
+                             + "\n".join(errors))
+    o0 = outs[0]
+    res = {"tp2": o0["tp2"], "pp2": o0["pp2"],
+           "dp2_serving": [o["dp2_serving"] for o in outs],
+           "staged_transfers": [o["staged_transfers"] for o in outs],
+           "seconds_per_step": {
+               "note": "two processes sharing one card through gloo "
+                       "(host-staged transfers), not a scaling figure",
+               "256^2 one process b=4": o0["one_process_steps"][-1]
+               ["seconds"],
+               "256^2 tp=2 b=4": o0["tp2"]["steps"][-1]["seconds"],
+               "256^2 pp=2 b=4 (2 microbatches)":
+                   o0["pp2"]["steps"][-1]["seconds"],
+               "256^2 dp=2 serving, 2 images (s a bundle)":
+                   o0["dp2_serving"]["seconds_per_bundle"]},
+           "one_process_steps": o0["one_process_steps"],
+           "world_seconds": world_s, "card": card_line()}
+    print(f"[18 parallel] {json.dumps(res)}", flush=True)
+    par18_gates(res, outs)
+    return res
+
+
+def par18_gates(res: dict, outs: list) -> None:
+    one = res["one_process_steps"][0]
+    checks = []
+    for key in ("tp2", "pp2"):
+        r = res[key]
+        checks.append((f"{key} loss", abs(r["steps"][0]["loss"]
+                                          - one["loss"]) / abs(one["loss"]),
+                       PAR18_LOSS_REL))
+        mine, one32 = r["vs_f32"], r["one_process_vs_f32"]
+        checks += [(f"{key} {what} vs f32, beyond one process's",
+                    mine[k] - one32[k], PAR_REL)
+                   for what, k in (("gradients rel-max", "grad_rel_max"),
+                                   ("gradients rel-L2", "grad_rel_l2_max"),
+                                   ("update rel-max", "update_rel_max"))]
+        launches = {k: v for k, v in r["step_launches"].items()
+                    if k.startswith("attention.")}
+        if launches != r["expected_step_launches"]:
+            raise AssertionError(f"18 {key} launches {launches} != "
+                                 f"{r['expected_step_launches']}")
+        if r["model_sum_bytes"] != r["expected_model_sum_bytes"]:
+            raise AssertionError(f"18 {key} bytes summed over model "
+                                 f"{r['model_sum_bytes']} != "
+                                 f"{r['expected_model_sum_bytes']}")
+    if res["tp2"]["heads_per_rank"] != [8] or not res["tp2"]["packed"]:
+        raise AssertionError(f"18 tp2: heads {res['tp2']['heads_per_rank']}"
+                             f", packed {res['tp2']['packed']}")
+    if res["pp2"]["layers_per_rank"] != 12:
+        raise AssertionError(f"18 pp2: {res['pp2']['layers_per_rank']} "
+                             f"layers a stage")
+    serve = res["dp2_serving"]
+    checks += [(f"dp2 serving element {i} PSNR (dB, at least)", -db,
+                -SERVE_PSNR_DB) for i, db in enumerate(serve[0]["psnr_db"])]
+    for what, val, bar in checks:
+        if not val <= bar:
+            raise AssertionError(f"18 {what} {val:.4g} > {bar}")
+    for s in serve:
+        if s["elements"] != len(SERVE_IMAGES) or \
+                s["launches_per_rank"] != s["expected_launches_per_rank"]:
+            raise AssertionError(f"18 dp2 serving: {s['elements']} "
+                                 f"elements, launches "
+                                 f"{s['launches_per_rank']}")
+    if serve[0]["render_sums"] != serve[1]["render_sums"]:
+        raise AssertionError("18 dp2 serving: the ranks returned different "
+                             "lists")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4046,6 +4324,9 @@ def main() -> int:
     # out
     with tempfile.TemporaryDirectory() as tmp:
         parallel = timed("17b parallel", phase_parallel, torch, dev, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        par18 = timed("18 tensor / pipeline parallel, serving",
+                      phase_parallel18, torch, dev, tmp)
     ring = {k: parallel["sp2"][k] for k in ("step_launches",
                                             "sampler_launches")}
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
@@ -4068,6 +4349,17 @@ def main() -> int:
                     launch_train["launches_total"][counter],
                 "launches_scene_eval": scene_eval["launches"][counter]}
 
+    def par18_launches(counter, serving_key=None):
+        """A row's launches per rank in phase 18: a tp = 2 and a pp = 2
+        step, and a dp = 2 served bundle."""
+        out = {f"launches_{k}_per_rank_per_step":
+               par18[k]["step_launches"].get(counter, 0)
+               for k in ("tp2", "pp2")}
+        if serving_key is not None:
+            out["launches_dp2_serving_per_rank"] = \
+                par18["dp2_serving"][0]["launches_per_rank"][serving_key]
+        return out
+
     src = "open_diffusiongs_tpu_torch/csrc/"
     density = serving["density"][1]     # phase 5's asset at 256
     t64, t48 = (general_kernels["times"][k] for k in ("h16_d64", "h16_d48"))
@@ -4081,7 +4373,9 @@ def main() -> int:
          "library_ms": attn["sdpa_ms"],
          **{k: v for k, v in attn.items() if k.endswith("_L16386")},
          "launches_512": sample_512["init"]["launches"]["attention"],
-         **cli_launches("attention.LAUNCHES")},
+         **cli_launches("attention.LAUNCHES"),
+         "launches_dp2_serving_per_rank":
+             par18["dp2_serving"][0]["launches_per_rank"]["attention"]},
         {"name": "blend_tiles", "route": "cuda",
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
@@ -4090,7 +4384,8 @@ def main() -> int:
          "ms": blend[0]["ms"], "plain_ms": blend[0]["plain_ms"],
          **roof(blend[0]), "library_ms": None, **trained_times(blend),
          "launches_512": sample_512["init"]["launches"]["blend"],
-         **cli_launches("blend_kernel.LAUNCHES")},
+         **cli_launches("blend_kernel.LAUNCHES"),
+         **par18_launches("blend_kernel.LAUNCHES", "blend")},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -4109,7 +4404,8 @@ def main() -> int:
          "launches_ring_dit_pass": ring["sampler_launches"]["LAUNCHES_STATS"],
          "split_extent_max_abs_err": split["max_abs_err_fwd"],
          "ms_ring_step_L16896_sp2":
-             split["ring_step_L16896_sp2"]["fwd_stats_ms"]},
+             split["ring_step_L16896_sp2"]["fwd_stats_ms"],
+         **par18_launches("attention.LAUNCHES_STATS")},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
@@ -4123,7 +4419,8 @@ def main() -> int:
          "launches_ring_per_rank_per_step":
              ring["step_launches"]["LAUNCHES_BWD"],
          "split_extent_max_abs_err": split["max_abs_err_bwd"],
-         "ms_ring_step_L16896_sp2": split["ring_step_L16896_sp2"]["bwd_ms"]},
+         "ms_ring_step_L16896_sp2": split["ring_step_L16896_sp2"]["bwd_ms"],
+         **par18_launches("attention.LAUNCHES_BWD")},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
@@ -4133,7 +4430,8 @@ def main() -> int:
          **roof(blend_bwd[0]), **trained_times(blend_bwd),
          "library_ms": None,
          "launches_512": train_512["launches"]["blend_bwd"],
-         **cli_launches("blend_kernel.LAUNCHES_BWD")},
+         **cli_launches("blend_kernel.LAUNCHES_BWD"),
+         **par18_launches("blend_kernel.LAUNCHES_BWD")},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",

@@ -21,15 +21,16 @@ Several processes (JAX launch.py:104-118, 172-197): run under torchrun,
         --config ... --train trainer.seq_parallel=2 trainer.zero1=true
 each rank takes card LOCAL_RANK (parallel/mesh.py::init_mesh; backend
 nccl, or gloo on the CPU; `--dist-backend gloo` for ranks that share a
-card).  The world splits into dp = N / seq_parallel data rows of
-seq_parallel ring ranks; the global batch is data.batch_size × dp, of
-which each data rank loads its slice.  Rank 0 alone writes cmd.txt,
+card).  trainer.pipe_parallel, seq_parallel and model_parallel lay the
+world out as dp = N / (pp·sp·tp) data rows of pp GPipe stages x sp ring
+ranks x tp tensor-parallel ranks (pipe_parallel composes with data
+parallelism only, as in JAX); the global batch is data.batch_size × dp,
+of which each data rank loads its slice.  Rank 0 alone writes cmd.txt,
 parsed.yaml, the code snapshot, metrics.csv, eval_metrics.csv, the loggers,
 the progress file and the checkpoints (gathered from every rank first);
 logged metrics are averaged over the data ranks.  --validate / --test /
---export shard the scenes over the data ranks (seq rank 0 of each row
-writes its scenes' artifacts).  trainer.model_parallel / pipe_parallel > 1
-raise (parallel/mesh.py).
+--export shard the scenes over the data ranks (the first rank of each data
+row writes its scenes' artifacts).
 
 Randomness: the draws of training step s come from a generator seeded by
 (seed + 1, s) (JAX folds its key by the step), so a resumed run draws what
@@ -141,10 +142,11 @@ def main(argv=None) -> Dict[str, Any]:
     _register_builtins()
     cfg = load_config(args.config, cli_args=extras, makedirs=False)
     trainer_cfg = dict(cfg.trainer)
-    _, sp = check_parallelism(trainer_cfg,
-                              int(os.environ.get("WORLD_SIZE", 1)))
-    mesh = init_mesh(seq_parallel=sp, device_type=device.type,
-                     backend=args.dist_backend, init_method=args.dist_init)
+    _, pp, sp, tp = check_parallelism(trainer_cfg,
+                                      int(os.environ.get("WORLD_SIZE", 1)))
+    mesh = init_mesh(seq_parallel=sp, model_parallel=tp, pipe_parallel=pp,
+                     device_type=device.type, backend=args.dist_backend,
+                     init_method=args.dist_init)
     device = mesh.device
     if mesh.world > 1:   # one trial dir: rank 0's timestamp
         cfg = dataclasses.replace(cfg, timestamp=_broadcast(cfg.timestamp))
@@ -423,8 +425,8 @@ def validate(cfg, args, system, state, dataset, device, record):
 
     _eval_params(args, state)
     mesh = record["mesh"]
-    # the seq ranks of a data row sample the same scenes; one writes them
-    writes = mesh.seq_rank == 0
+    # the ranks of a data row sample the same scenes; one writes them
+    writes = mesh.leads_row
     step = state.step
     n_total = len(dataset)
     eval_bs = int(cfg.data.get("eval_batch_size", 1))
@@ -522,7 +524,7 @@ def export(cfg, args, system, state, dataset, device, record):
 
     _eval_params(args, state)
     mesh = record["mesh"]
-    writes = mesh.seq_rank == 0
+    writes = mesh.leads_row
     out_dir = os.path.join(cfg.trial_dir, "save", f"it{state.step}-export")
     progress = ProgressFile(os.path.join(cfg.trial_dir, "progress")
                             if args.gradio and mesh.is_main else None)

@@ -85,7 +85,7 @@ class DGSDenoiser(nn.Module):
                  gs_raw_offset_scaling: float = 0.0,
                  gs_raw_offset_opacity: float = 0.0,
                  checkpoint: bool = False, attn_impl: str = "auto",
-                 quant_int8: bool = False, seq=None):
+                 quant_int8: bool = False, seq=None, model=None, pipe=None):
         super().__init__()
         if ray_pe_type not in ("relative_plk", "plk"):
             raise ValueError(f"unknown ray_pe_type {ray_pe_type}")
@@ -121,14 +121,16 @@ class DGSDenoiser(nn.Module):
         # checkpoint: block recompute in the backward (the reference's
         # use_checkpoint, the JAX package's remat); attn_impl as JAX's
         # (denoiser.py:84): a dim_heads failing the packed lane test takes
-        # the general route (models/transformer.py); `seq`: the ring of
-        # sequence parallelism (parallel/mesh.py::Mesh with sp > 1, JAX's
-        # sp_mesh), used by the stack alone: the ops around it run whole
-        # on every seq rank
+        # the general route (models/transformer.py); `seq`, `model`,
+        # `pipe`: the run's parallel/mesh.py::Mesh where its sp, tp or pp
+        # is > 1 (JAX's sp_mesh, tp_mesh, pp_mesh, denoiser.py:87-94), used
+        # by the stack alone: the ops around it run whole on every rank of
+        # those axes
         self.transformer = DiTStack(width, width // dim_heads, num_layers,
                                     dtype=dtype, checkpoint=checkpoint,
                                     attn_impl=attn_impl,
-                                    quant_int8=quant_int8, seq=seq)
+                                    quant_int8=quant_int8, seq=seq,
+                                    model=model, pipe=pipe)
         self.upsampler = AdaLNHead(width, gs_ch, dtype=dtype)
         self.image_token_decoder = AdaLNHead(width, patch_size ** 2 * gs_ch,
                                              dtype=dtype)

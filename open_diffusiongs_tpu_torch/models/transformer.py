@@ -51,8 +51,26 @@ backward sums the ranks' cotangents); packed blocks attend through the
 ring (parallel/ring.py: #1s and #3 per ring step), the others gather k and
 v over the ring and run the general route on the local queries.
 
+Tensor parallelism (transformer.py:204-301, :356-398; parallel/shard.py
+for which rank holds what): with a `model` mesh of tp > 1 ranks each
+block holds its model rank's shards of qkv and fc1 (column-parallel, input
+through parallel/tensor_parallel.py::copy_to_model) and of proj and fc2
+(row-parallel, output summed over `model` in rank order before the whole
+bias is added once).  Attention runs on the num_heads / tp local heads and
+takes the route JAX's rule gives the local head count (transformer.py:
+376-380): at 16 heads of 64 and tp = 2 the packed kernels run on 8 heads;
+a tp that leaves the local layout failing the lane test takes the general
+route.  Under sp > 1 too, the ring runs on the local heads.  `q_norm` /
+`k_norm` are replicated and see only the local heads, so their cotangent
+is summed over `model` as well.
+
+Pipeline parallelism (transformer.py:611-642): with a `pipe` mesh of
+pp > 1 stages, DiTStack holds its stage's num_layers / pp blocks and runs
+them through parallel/pipeline.py::pipeline_apply (GPipe microbatches,
+in training and under no_grad); every stage returns the whole output.
+
 Left out of this port (ROADMAP Queue 1): splash as an `attn_impl` of its
-own (a JAX library kernel) and pipeline / tensor-parallel meshes.
+own (a JAX library kernel).
 """
 
 from __future__ import annotations
@@ -67,24 +85,45 @@ from torch import nn
 from ..ops.attention import flash_attention, flash_full_attention, \
     plan_packed
 from ..ops.quant import QuantLinear
+from ..parallel.pipeline import pipeline_apply
 from ..parallel.ring import gather_seq, ring_attention
+from ..parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 ATTN_IMPLS = ("auto", "flash", "splash", "xla")
 
 
 class Linear(nn.Linear):
     """nn.Linear that computes in `compute_dtype` (flax Dense(dtype=...)):
-    the input, weight and bias are cast to it; parameters stay f32."""
+    the input, weight and bias are cast to it; parameters stay f32.
+
+    `parallel` with a `tp_mesh` of tp > 1 (its features are this model
+    rank's shard, parallel/shard.py): "column" passes the cast input
+    through `copy_to_model` (its cotangent summed over `model`); "row"
+    sums the bias-free partial products over `model` (f32, rank order,
+    parallel/tensor_parallel.py), adds the whole bias and casts once."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True, compute_dtype=torch.float32):
+                 bias: bool = True, compute_dtype=torch.float32,
+                 parallel=None, tp_mesh=None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        tp = tp_mesh is not None and tp_mesh.tp > 1
+        self.parallel = parallel if tp else None
+        self.tp_mesh = tp_mesh if tp else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        x = x.to(dt)
+        if self.parallel == "column":
+            x = copy_to_model(x, self.tp_mesh)
+        if self.parallel == "row":
+            y = reduce_from_model(F.linear(x, self.weight.to(dt)),
+                                  self.tp_mesh)
+            if self.bias is not None:
+                y = y + self.bias.to(dt).float()
+            return y.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return F.linear(x, self.weight.to(dt), bias)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -191,27 +230,36 @@ def subset_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([head, rest], dim=1)
 
 
-def takes_packed(dim: int, num_heads: int, qk_norm: bool = False) -> bool:
-    """JAX's packed-route test (transformer.py:376-380, :530-532)."""
+def takes_packed(dim: int, num_heads: int, qk_norm: bool = False,
+                 tp: int = 1) -> bool:
+    """JAX's packed-route test (transformer.py:376-380, :530-532) on the
+    num_heads / tp heads of one model rank."""
     dh = dim // num_heads
     return (not qk_norm and dh <= 64 and 128 % dh == 0
-            and num_heads % (128 // dh) == 0)
+            and num_heads % tp == 0
+            and (num_heads // tp) % (128 // dh) == 0)
+
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
 
 
 class RMSNorm(nn.Module):
     """RMSNorm with a learned scale, computed in f32 and cast back
-    (transformer.py:304-316)."""
+    (transformer.py:304-316).  With a `tp_mesh` of tp > 1 it normalizes
+    the local heads and its weight's cotangent is summed over `model`."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, tp_mesh=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
+        self.tp_mesh = tp_mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         norm = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True)
                                  + self.eps)
-        return (norm * self.weight).to(x.dtype)
+        return (norm * copy_to_model(self.weight, self.tp_mesh)).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -242,28 +290,38 @@ class Attention(nn.Module):
     packed blocks run `ring_attention` on the local qkv, the others gather
     k and v over the ring (`gather_seq`), slice them to the real rows and
     attend the local queries to them, as XLA does in JAX
-    (transformer.py:370-405)."""
+    (transformer.py:370-405).
+
+    With a `model` mesh of tp > 1 ranks (module docstring) qkv is
+    column-parallel (rows q[m] | k[m] | v[m], parallel/shard.py), proj
+    row-parallel, and everything above runs on the local heads."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  attn_impl: str = "auto", qk_norm: bool = False,
-                 quant_int8: bool = False, seq=None):
+                 quant_int8: bool = False, seq=None, model=None):
         super().__init__()
-        self.num_heads = num_heads
+        tp = _tp(model)
+        if num_heads % tp:
+            raise ValueError(f"{num_heads} heads do not split over "
+                             f"model_parallel={tp}")
+        self.num_heads = num_heads // tp       # this model rank's heads
         self.seq = seq
         self.attn_impl = resolve_attn_impl(attn_impl)
         self.packed = (self.attn_impl == "flash"
-                       and takes_packed(dim, num_heads, qk_norm))
+                       and takes_packed(dim, num_heads, qk_norm, tp))
         dense = QuantLinear if quant_int8 else Linear
-        self.qkv = dense(dim, 3 * dim, compute_dtype=dtype)
+        self.qkv = dense(dim, 3 * dim // tp, compute_dtype=dtype,
+                         parallel="column", tp_mesh=model)
         if qk_norm:
-            self.q_norm = RMSNorm(dim // num_heads)
-            self.k_norm = RMSNorm(dim // num_heads)
+            self.q_norm = RMSNorm(dim // num_heads, tp_mesh=model)
+            self.k_norm = RMSNorm(dim // num_heads, tp_mesh=model)
         self.qk_norm = qk_norm
-        self.proj = dense(dim, dim, compute_dtype=dtype)
+        self.proj = dense(dim // tp, dim, compute_dtype=dtype,
+                          parallel="row", tp_mesh=model)
 
     def forward(self, x: torch.Tensor, l_real: int | None = None
                 ) -> torch.Tensor:
-        b, l, d = x.shape
+        b, l, _ = x.shape
         qkv = self.qkv(x)
         if self.seq is not None and self.seq.sp > 1:
             return self.proj(self._seq_attention(qkv, l_real))
@@ -275,7 +333,7 @@ class Attention(nn.Module):
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         o = fused_attention(q, k, v, self.attn_impl)
-        return self.proj(o.reshape(b, l, d))
+        return self.proj(o.reshape(b, l, -1))
 
     def _seq_attention(self, qkv: torch.Tensor, l_real: int) -> torch.Tensor:
         if l_real is None:
@@ -296,13 +354,22 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 -> tanh-GELU -> fc2; with a `model` mesh of tp > 1 ranks fc1 is
+    column-parallel and fc2 row-parallel over the hidden features."""
+
     def __init__(self, dim: int, mlp_ratio: float = 4.0, dtype=torch.float32,
-                 quant_int8: bool = False):
+                 quant_int8: bool = False, model=None):
         super().__init__()
         hidden = int(dim * mlp_ratio)
+        tp = _tp(model)
+        if hidden % tp:
+            raise ValueError(f"{hidden} hidden features do not split over "
+                             f"model_parallel={tp}")
         dense = QuantLinear if quant_int8 else Linear
-        self.fc1 = dense(dim, hidden, compute_dtype=dtype)
-        self.fc2 = dense(hidden, dim, compute_dtype=dtype)
+        self.fc1 = dense(dim, hidden // tp, compute_dtype=dtype,
+                         parallel="column", tp_mesh=model)
+        self.fc2 = dense(hidden // tp, dim, compute_dtype=dtype,
+                         parallel="row", tp_mesh=model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -315,13 +382,13 @@ class DiTBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
                  attn_impl: str = "auto", qk_norm: bool = False,
-                 quant_int8: bool = False, seq=None):
+                 quant_int8: bool = False, seq=None, model=None):
         super().__init__()
         self.attn = Attention(hidden_size, num_heads, dtype=dtype,
                               attn_impl=attn_impl, qk_norm=qk_norm,
-                              quant_int8=quant_int8, seq=seq)
+                              quant_int8=quant_int8, seq=seq, model=model)
         self.mlp = Mlp(hidden_size, mlp_ratio, dtype=dtype,
-                       quant_int8=quant_int8)
+                       quant_int8=quant_int8, model=model)
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size,
                               compute_dtype=dtype))
@@ -347,41 +414,57 @@ class DiTStack(nn.ModuleList):
     pads the tokens to `plan_packed(L)`'s length Lp (Lp % sp == 0), runs
     the blocks on this rank's Lp/sp rows and all-gathers the result over
     the ring before slicing it back to L: every seq rank returns the whole
-    [b, L, d].  `checkpoint`: recompute each block in the backward instead
-    of keeping its activations (only while grad mode is on).  Like JAX's
-    stack it takes `attn_impl`, `quant_int8` and no `qk_norm`
-    (transformer.py:480-609)."""
+    [b, L, d].  With a `model` mesh of tp > 1 ranks every block holds its
+    tensor-parallel shards (module docstring).  With a `pipe` mesh of
+    pp > 1 stages, stage p holds layers [p·n, (p+1)·n) of n = num_layers
+    / pp, as blocks 0 .. n - 1, and runs them through `pipeline_apply` on
+    pp microbatches of the batch (JAX's default; gcd(b, pp) when pp does
+    not divide b, where JAX asserts); every stage returns the whole
+    output.  `checkpoint`: recompute each block in the backward instead
+    of keeping its activations (only while grad mode is on).
+    Like JAX's stack it takes `attn_impl`, `quant_int8` and no `qk_norm`
+    (transformer.py:480-642)."""
 
     def __init__(self, hidden_size: int, num_heads: int, num_layers: int,
                  mlp_ratio: float = 4.0, dtype=torch.float32,
                  checkpoint: bool = False, attn_impl: str = "auto",
-                 quant_int8: bool = False, seq=None):
+                 quant_int8: bool = False, seq=None, model=None, pipe=None):
+        pp = 1 if pipe is None else pipe.pp
+        if num_layers % pp:
+            raise ValueError(f"{num_layers} layers do not split over "
+                             f"pipe_parallel={pp}")
         super().__init__(DiTBlock(hidden_size, num_heads, mlp_ratio,
                                   dtype=dtype, attn_impl=attn_impl,
-                                  quant_int8=quant_int8, seq=seq)
-                         for _ in range(num_layers))
+                                  quant_int8=quant_int8, seq=seq,
+                                  model=model)
+                         for _ in range(num_layers // pp))
         self.checkpoint = checkpoint
         self.seq = seq
+        self.pipe = pipe if pp > 1 else None
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, c: torch.Tensor, l_real=None
+             ) -> torch.Tensor:
         remat = self.checkpoint and torch.is_grad_enabled()
-        sp = 1 if self.seq is None else self.seq.sp
-        l = l_real = x.shape[1]
-        if sp > 1:
-            lp = plan_packed(l)[0]
-            if lp % sp:
-                raise ValueError(f"padded token axis {lp} does not divide "
-                                 f"seq_parallel={sp}")
-            lq, s = lp // sp, self.seq.seq_rank
-            x = F.pad(x, (0, 0, 0, lp - l))[:, s * lq:(s + 1) * lq]
-        else:
-            l_real = None
         for block in self:
             if remat:
                 x = torch.utils.checkpoint.checkpoint(block, x, c, l_real,
                                                       use_reentrant=False)
             else:
                 x = block(x, c, l_real)
-        if sp > 1:
-            x = gather_seq(x, self.seq)[:, :l]
         return x
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        if self.pipe is not None:
+            return pipeline_apply(self.pipe, self._run, x, c,
+                                  params=list(self.parameters()))
+        sp = 1 if self.seq is None else self.seq.sp
+        if sp == 1:
+            return self._run(x, c)
+        l = x.shape[1]
+        lp = plan_packed(l)[0]
+        if lp % sp:
+            raise ValueError(f"padded token axis {lp} does not divide "
+                             f"seq_parallel={sp}")
+        lq, s = lp // sp, self.seq.seq_rank
+        x = F.pad(x, (0, 0, 0, lp - l))[:, s * lq:(s + 1) * lq]
+        return gather_seq(self._run(x, c, l), self.seq)[:, :l]

@@ -33,24 +33,35 @@ wrapped in DistributedDataParallel (its `module.` prefix would rename the
 state-dict keys, and the seq axis' rule below needs the whole world).  At
 the step that applies an update (the last micro-step under accumulation:
 one reduction per update, of the same mean), each param group's gradient
-is flattened into one f32 bucket and averaged over all dp·sp ranks with
-one all-reduce; with seq ranks this gives the one-rank gradient, because
-the DiT's final gather sums the seq ranks' identical cotangents
-(parallel/ring.py).  The clip norm is then taken over the bucket's dp
-equal shards, each shard's sum of squares first and those in rank order,
-which is exactly what ZeRO-1 computes.
+is flattened into f32 buckets and averaged over the dp·sp ranks of this
+rank's replica group (the ranks holding the same tensor- and
+pipeline-parallel shard, parallel/mesh.py) with one all-reduce each; with
+seq ranks this gives the one-rank gradient, because the DiT's final
+gather sums the seq ranks' identical cotangents (parallel/ring.py).  A
+group has one bucket of the parameters replicated over `model` and
+`pipe`, and, under tensor or pipeline parallelism, one of those sharded
+over them (parallel/shard.py::is_sharded).  The clip norm is then taken
+over each bucket's dp equal shards, each shard's sum of squares first and
+those in rank order, which is exactly what ZeRO-1 computes; the sharded
+buckets' partial sums are then summed over `model` and `pipe` (in rank
+order), the replicated ones counted once, so the norm is the one-rank
+model's.
 
 `Zero1Optimizer` (trainer.zero1 with dp > 1; JAX's `_zero1_spec`,
 mesh.py:115-165, which shards opt_state and ema_params over `data`):
-each group's bucket is summed over the seq ranks, reduce-scattered over
-the data ranks into this rank's shard and averaged; the Adam moments and
-the EMA live only as shards; the clip norm is the all-gathered sum of the
-shards' squares; each rank updates its shard of the params and
-all-gathers them.  Every operation on an element is the one DDP applies
-to it, so with dp = 2 the params, EMA and moments equal DDP's bit for bit
-(a + b = b + a).  `state_dict()` gathers the shards into the one-rank
-layout (a collective: every rank calls it) and `load_state_dict` keeps
-this rank's shard, so checkpoints move across world sizes.
+each bucket is summed over the seq ranks, reduce-scattered over the data
+ranks into this rank's shard and averaged; the Adam moments and the EMA
+live only as shards; the clip norm is the all-gathered sum of the
+shards' squares (the sharded buckets' summed over `model` and `pipe` as
+above); each rank updates its shard of the params and all-gathers them.
+Every operation on an element is the one DDP applies to it, so with
+dp = 2 the params, EMA and moments equal DDP's bit for bit (a + b =
+b + a); under tensor parallelism too, since the norm's sum over
+`model` is the one DDP makes.  `state_dict()` gathers the shards into
+this rank's tensors by name (a collective: every rank calls it) and
+`load_state_dict` keeps this rank's shard; utils/checkpoint.py gathers
+those over `model` and `pipe` into the one-rank layout, so checkpoints
+move across layouts.
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 
 from ..utils.schedules import cosine_annealing_lr
+from .shard import is_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +173,16 @@ class _Group:
     params: List[torch.Tensor]
     lr: Callable[[int], float]
     cfg: OptimizerConfig
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """The params of one group that are sharded over `model` / `pipe`, or
+    of those replicated there, and their flat layout."""
+    group: _Group
+    params: List[torch.Tensor]
+    sharded: bool
+    flat: "_Flat"
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -271,11 +293,21 @@ class Optimizer:
         self._mu: Dict[int, torch.Tensor] = {}
         self._nu: Dict[int, torch.Tensor] = {}
         self._acc: Optional[List[torch.Tensor]] = None
-        # several ranks: one bucket layout per group, sharded over dp
+        # several ranks: each group's buckets (replicated / sharded params),
+        # their layouts sharded over dp
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.grad_norm: Optional[torch.Tensor] = None
-        self._flats = ([_Flat(g.params, self.mesh.dp) for g in self.groups]
-                       if self.mesh is not None else None)
+        self.buckets: List[_Bucket] = []
+        if self.mesh is not None:
+            name_of = {id(p): n for n, p in named}
+            for g in self.groups:
+                for sharded in (False, True):
+                    ps = [p for p in g.params
+                          if is_sharded(name_of[id(p)], self.mesh.tp,
+                                        self.mesh.pp) == sharded]
+                    if ps:
+                        self.buckets.append(_Bucket(g, ps, sharded,
+                                                    _Flat(ps, self.mesh.dp)))
 
     @staticmethod
     def _label(name: str, gcfgs: Dict[str, OptimizerConfig]) -> str:
@@ -309,8 +341,8 @@ class Optimizer:
             return None
         acc = self._acc
         if self.mesh is not None:
-            acc = [self.mesh.all_reduce_(a.clone(), "world")
-                   .div_(self.mesh.world) for a in acc]
+            acc = [self.mesh.all_reduce_(a.clone(), "replica")
+                   .div_(self.mesh.replicas) for a in acc]
         return dict(zip(self.names, acc))
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -359,18 +391,18 @@ class Optimizer:
                 return False
             grads, grad_norm = self._acc, None
         index = {id(p): i for i, p in enumerate(self.params)}
-        by_group = [[grads[index[id(p)]] for p in g.params]
-                    for g in self.groups]
         if self.mesh is None:
             clip = self.cfg.grad_clip
             if clip and clip > 0:
                 norm = global_norm(grads) if grad_norm is None else grad_norm
                 # in place and on the device: no host sync, no second copy
                 torch._foreach_mul_(grads, _clip_scale(norm, clip))
-            for group, g in zip(self.groups, by_group):
-                self._update(group, g)
+            for group in self.groups:
+                self._update(group, group.params,
+                             [grads[index[id(p)]] for p in group.params])
         else:
-            self._step_ranks(by_group)
+            self._step_ranks([[grads[index[id(p)]] for p in b.params]
+                              for b in self.buckets])
         self.count += 1
         if k > 1:
             self.mini_step = 0
@@ -378,33 +410,49 @@ class Optimizer:
                 acc.zero_()
         return True
 
-    def _step_ranks(self, by_group: List[List[torch.Tensor]]) -> None:
-        """DDP: average each group's bucket over the world, clip with the
+    def _norm(self, partials: torch.Tensor) -> torch.Tensor:
+        """The global norm from each bucket's dp shard partials [dp,
+        buckets]: the sharded buckets' columns summed over `model` and
+        `pipe` (rank order), the replicated ones counted once."""
+        sharded = [b.sharded for b in self.buckets]
+        if any(sharded):
+            whole = partials
+            for axis in ("model", "pipe"):
+                if self.mesh.size(axis) > 1:
+                    whole = self.mesh.ordered_sum(whole, axis)
+            partials = torch.where(
+                torch.tensor(sharded, device=partials.device), whole,
+                partials)
+        return torch.sqrt(partials.sum())
+
+    def _step_ranks(self, by_bucket: List[List[torch.Tensor]]) -> None:
+        """DDP: average each bucket over the replica group, clip with the
         sharded norm, update every param (replicated moments)."""
         mesh = self.mesh
         flats = []
-        for lay, g in zip(self._flats, by_group):
-            flat = mesh.all_reduce_(lay.flatten(g), "world")
-            flats.append(flat.div_(mesh.world))
+        for b, g in zip(self.buckets, by_bucket):
+            flat = mesh.all_reduce_(b.flat.flatten(g), "replica")
+            flats.append(flat.div_(mesh.replicas))
         partials = torch.stack([
-            torch.stack([_sum_sq(lay.shard(f, r))
-                         for lay, f in zip(self._flats, flats)])
-            for r in range(mesh.dp)])                      # [dp, groups]
-        self.grad_norm = torch.sqrt(partials.sum())
+            torch.stack([_sum_sq(b.flat.shard(f, r))
+                         for b, f in zip(self.buckets, flats)])
+            for r in range(mesh.dp)])                      # [dp, buckets]
+        self.grad_norm = self._norm(partials)
         clip = self.cfg.grad_clip
-        for group, lay, flat in zip(self.groups, self._flats, flats):
+        for b, flat in zip(self.buckets, flats):
             if clip and clip > 0:
                 flat.mul_(_clip_scale(self.grad_norm, clip))
-            self._update(group, lay.views(flat))
+            self._update(b.group, b.params, b.flat.views(flat))
 
-    def _update(self, group: _Group, grads: List[torch.Tensor]) -> None:
+    def _update(self, group: _Group, params: List[torch.Tensor],
+                grads: List[torch.Tensor]) -> None:
         mu = nu = None
         if self.kind != "sgd":
             mu = [self._mu.setdefault(id(p), torch.zeros_like(p))
-                  for p in group.params]
+                  for p in params]
             nu = [self._nu.setdefault(id(p), torch.zeros_like(p))
-                  for p in group.params]
-        self._apply(group, group.params, grads, mu, nu)
+                  for p in params]
+        self._apply(group, params, grads, mu, nu)
 
     def _apply(self, group: _Group, params, grads, mu, nu) -> None:
         """One update of `params` (lists of tensors, elementwise)."""
@@ -449,30 +497,30 @@ class Zero1Optimizer(Optimizer):
         self._nu_s: Optional[List[torch.Tensor]] = None
 
     def param_shards(self) -> List[torch.Tensor]:
-        """This rank's shard of each group's params, flat f32 copies."""
+        """This rank's shard of each bucket's params, flat f32 copies."""
         r = self.mesh.data_rank
-        return [lay.shard_of(g.params, r)
-                for lay, g in zip(self._flats, self.groups)]
+        return [b.flat.shard_of(b.params, r) for b in self.buckets]
 
     def gather_named(self, shards: List[torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-        """Per-group shards -> {name: whole tensor} (a collective)."""
+        """Per-bucket shards -> {name: this rank's tensor} (a collective
+        over the data ranks)."""
         by_id = {}
-        for lay, g, sh in zip(self._flats, self.groups, shards):
+        for b, sh in zip(self.buckets, shards):
             full = self.mesh.all_gather(sh, "data")
-            for p, v in zip(g.params, lay.views(full)):
+            for p, v in zip(b.params, b.flat.views(full)):
                 by_id[id(p)] = v.clone()
         return {n: by_id[id(p)] for n, p in zip(self.names, self.params)}
 
     def shards_from_named(self, named: Dict[str, torch.Tensor]
                           ) -> List[torch.Tensor]:
-        """{name: whole tensor} -> this rank's per-group shards."""
+        """{name: this rank's tensor} -> this rank's per-bucket shards."""
         index = dict(zip(self.names, self.params))
         pos = {id(p): n for n, p in index.items()}
         r = self.mesh.data_rank
-        return [lay.shard_of([named[pos[id(p)]] for p in g.params], r,
-                             device=g.params[0].device)
-                for lay, g in zip(self._flats, self.groups)]
+        return [b.flat.shard_of([named[pos[id(p)]] for p in b.params], r,
+                                device=b.params[0].device)
+                for b in self.buckets]
 
     def state_dict(self) -> Dict[str, Any]:
         """As `Optimizer.state_dict`, the moment shards gathered into whole
@@ -492,30 +540,30 @@ class Zero1Optimizer(Optimizer):
                       else None)
         self._load_acc(sd["acc"])
 
-    def _step_ranks(self, by_group: List[List[torch.Tensor]]) -> None:
+    def _step_ranks(self, by_bucket: List[List[torch.Tensor]]) -> None:
         mesh, r = self.mesh, self.mesh.data_rank
         shards = []
-        for lay, g in zip(self._flats, by_group):
-            flat = mesh.all_reduce_(lay.flatten(g), "seq")
-            shards.append(mesh.reduce_scatter(flat, "data").div_(mesh.world))
+        for b, g in zip(self.buckets, by_bucket):
+            flat = mesh.all_reduce_(b.flat.flatten(g), "seq")
+            shards.append(mesh.reduce_scatter(flat, "data")
+                          .div_(mesh.replicas))
         mine = torch.stack([_sum_sq(sh) for sh in shards])
-        partials = mesh.all_gather(mine[None], "data")     # [dp, groups]
-        self.grad_norm = torch.sqrt(partials.sum())
+        partials = mesh.all_gather(mine[None], "data")     # [dp, buckets]
+        self.grad_norm = self._norm(partials)
         clip = self.cfg.grad_clip
         if self.kind != "sgd" and self._mu_s is None:
             self._mu_s = [torch.zeros_like(sh) for sh in shards]
             self._nu_s = [torch.zeros_like(sh) for sh in shards]
-        for gi, (group, lay, sh) in enumerate(zip(self.groups, self._flats,
-                                                  shards)):
+        for i, (b, sh) in enumerate(zip(self.buckets, shards)):
             if clip and clip > 0:
                 sh.mul_(_clip_scale(self.grad_norm, clip))
-            p_sh = lay.shard_of(group.params, r)
+            p_sh = b.flat.shard_of(b.params, r)
             mu = nu = None
             if self.kind != "sgd":
-                mu, nu = [self._mu_s[gi]], [self._nu_s[gi]]
-            self._apply(group, [p_sh], [sh], mu, nu)
+                mu, nu = [self._mu_s[i]], [self._nu_s[i]]
+            self._apply(b.group, [p_sh], [sh], mu, nu)
             full = mesh.all_gather(p_sh, "data")
-            for p, v in zip(group.params, lay.views(full)):
+            for p, v in zip(b.params, b.flat.views(full)):
                 p.copy_(v)
 
 

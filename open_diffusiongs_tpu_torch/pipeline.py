@@ -8,6 +8,13 @@ density field is a CUDA kernel).  `from_pretrained` (JAX :160-193) loads a
 pretrained directory (config.yaml + ckpts/, made from reference weights by
 the port's tools/make_pretrained_dir.py); the constructor wraps a system
 whose model the caller initialized or loaded.
+
+`batch(..., mesh=)` serves one request bundle over the data ranks of a
+parallel/mesh.py::Mesh (JAX `batch(device_mesh=)`, :211-273): each data
+rank samples its rows, drawing the whole bundle's noise at every draw and
+keeping its rows (so each element gets the noise it gets unsharded), runs
+the filters, mesh and PLY of its own elements, and every rank returns the
+whole list in input order, gathered over the data ranks.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from .ops.gaussians import NumpyGaussians
@@ -197,7 +205,8 @@ class DiffusionGSPipeline:
               opacity_thres: float = 0.02,
               crop_bbx: Tuple[float, ...] = (-0.91, 0.91) * 3,
               save_ply=None, matting: str = "u2net",
-              stage_seconds: Optional[Dict[str, float]] = None) -> list:
+              stage_seconds: Optional[Dict[str, float]] = None,
+              mesh=None) -> list:
         """Images (paths, PIL images or [3, h, w] arrays) -> one
         GSPipelineOutput each, sampled together as one batch.  With
         `extract_mesh` each image's filtered Gaussians are meshed as JAX
@@ -207,9 +216,20 @@ class DiffusionGSPipeline:
         per-image output paths (None entries skip).  `stage_seconds`: a
         dict that receives each stage's host seconds (preprocess,
         camera_template, sampler, transfer, filters, mesh when asked, ply),
-        each edge synchronized with the device."""
+        each edge synchronized with the device.  `mesh`: serve over its
+        data ranks (module docstring; every rank of the mesh calls this
+        with the same arguments); len(images) must divide them."""
         dev = self.system.device
         clock = StageClock(stage_seconds, dev)
+        n_all = len(images)
+        dp, d = (1, 0) if mesh is None else (mesh.dp, mesh.data_rank)
+        if n_all % dp:
+            raise ValueError(f"batch {n_all} must divide the data ranks "
+                             f"({dp}); pad the request bundle with a repeat "
+                             f"image and drop the extras")
+        rows = slice(d * n_all // dp, (d + 1) * n_all // dp)
+        images = list(images)[rows]
+        save_ply = None if save_ply is None else list(save_ply)[rows]
         conds = []
         for image in images:
             if isinstance(image, str):
@@ -229,7 +249,16 @@ class DiffusionGSPipeline:
         fxy_t = torch.from_numpy(fxy).to(dev)[None].expand(b, -1, -1)
         gen = torch.Generator(device=dev).manual_seed(seed)
         clock.stage("camera_template")
-        out = self.system.sample(cond_t, c2w_t, fxy_t, gen)
+        if dp == 1:
+            out = self.system.sample(cond_t, c2w_t, fxy_t, gen)
+        else:
+            def draw(t_idx=None):
+                # the whole bundle's draw, this data rank's rows
+                return torch.randn((n_all, n_views - 1, 3, resolution,
+                                    resolution), generator=gen,
+                                   device=dev)[rows]
+            out = self.system.sample(cond_t, c2w_t, fxy_t, gen,
+                                     noise=draw(), noise_fn=draw)
         clock.stage("sampler")
 
         g_all = NumpyGaussians.from_tensors(out["gaussians"])
@@ -244,10 +273,10 @@ class DiffusionGSPipeline:
             g = g.apply_all_filters(opacity_thres=opacity_thres,
                                     crop_bbx=crop_bbx)
             clock.stage("filters")
-            mesh, mesh_seconds = None, {}
+            tris, mesh_seconds = None, {}
             if extract_mesh:
                 from .ops.mesh import extract_mesh as _extract
-                mesh = _extract(g, resolution=mesh_resolution, device=dev,
+                tris = _extract(g, resolution=mesh_resolution, device=dev,
                                 stage_seconds=mesh_seconds)
                 clock.stage("mesh")
             if save_ply and save_ply[i]:
@@ -255,6 +284,11 @@ class DiffusionGSPipeline:
             clock.stage("ply")
             results.append(GSPipelineOutput(
                 gaussians=g, renders=renders_all[i], input_image=conds[i],
-                stats=stats, mesh=mesh, mesh_seconds=mesh_seconds))
-        return results
+                stats=stats, mesh=tris, mesh_seconds=mesh_seconds))
+        if dp == 1:
+            return results
+        gathered = [None] * dp
+        dist.all_gather_object(gathered, results,
+                               group=mesh.groups.get("data"))
+        return [r for part in gathered for r in part]
 

@@ -93,9 +93,11 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
     builder.py:85-88, :116-119).  Returns the system with its
     (uninitialized) model on `device`: call `init_params`, then
     `load_pretrained` (the config's weight bootstraps).  `mesh`
-    (parallel/mesh.py::Mesh): the run's ranks; a seq ring of sp > 1 goes to
-    the DiT as shape_model's `seq`, as JAX threads sp_mesh
-    (builder.py:79-82), and the system draws per data rank."""
+    (parallel/mesh.py::Mesh): the run's ranks; where its sp, tp or pp is
+    > 1 it goes to the DiT as shape_model's `seq`, `model` or `pipe`, as
+    JAX threads sp_mesh / tp_mesh / pp_mesh (builder.py:65-84), and the
+    system draws per data rank.  Under tensor or pipeline parallelism the
+    model holds this rank's parameters (parallel/shard.py)."""
     from .. import find
     from .object_system import ObjectSystemConfig
     from .scene_system import SCENE_SYSTEM, SceneSystemConfig
@@ -106,8 +108,9 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
     noise = dict(cfg.get("noise_scheduler", {}))
     sm = shape_model_kwargs(cfg.get("shape_model", {}), bf16=bf16,
                             ignored=ignored)
-    if mesh is not None and mesh.sp > 1:
-        sm["seq"] = mesh
+    for axis, size in (("seq", "sp"), ("model", "tp"), ("pipe", "pp")):
+        if mesh is not None and getattr(mesh, size) > 1:
+            sm[axis] = mesh
     scene = system_type == SCENE_SYSTEM
     if scene:
         sm.setdefault("ray_pe_type", "plk")

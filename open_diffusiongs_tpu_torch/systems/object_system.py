@@ -23,6 +23,7 @@ from ..diffusion import create_schedule, p_sample_loop, q_sample
 from ..models.denoiser import DGSDenoiser
 from ..ops import rasterize
 from ..ops.rays import rays_chw
+from ..parallel.shard import shard_for_mesh
 from ..utils.schedules import C, C_max
 from . import losses as losses_lib
 
@@ -100,8 +101,22 @@ class ObjectSystem:
     def init_params(self, generator: torch.Generator) -> DGSDenoiser:
         """Random init from `generator` (its device must be the system's):
         Linear weights ~ N(0, 0.02), zero biases, truncated-normal
-        free-Gaussian embedding.  Returns the model."""
-        self.model.init_weights(generator)
+        free-Gaussian embedding.  Under tensor or pipeline parallelism the
+        one-rank model is initialized and this rank's part of it kept
+        (parallel/shard.py), so every layout starts from the same params.
+        Returns the model."""
+        mesh = self.mesh
+        if mesh is None or (mesh.tp == 1 and mesh.pp == 1):
+            self.model.init_weights(generator)
+            return self.model
+        one = {k: v for k, v in self.cfg.shape_model.items()
+               if k not in ("seq", "model", "pipe")}
+        with torch.device("meta"):
+            whole = DGSDenoiser(**one)
+        whole = whole.to_empty(device=self.device)
+        whole.init_weights(generator)
+        self.model.load_state_dict(shard_for_mesh(whole.state_dict(), mesh),
+                                   strict=True)
         return self.model
 
     def load_pretrained(self) -> DGSDenoiser:
@@ -111,7 +126,9 @@ class ObjectSystem:
              denoiser (the stage-2-from-stage-1 recipe);
           2. `weights`: non-strict load, skipping the modules named in
              `weights_ignore_modules` (their init values stay).
-        Sources are those of utils/checkpoint.py::load_weights_file."""
+        Sources are those of utils/checkpoint.py::load_weights_file, whole
+        tensors cut to this rank's part under tensor or pipeline
+        parallelism."""
         from ..utils import checkpoint as ckpt_lib
         cfg = self.cfg
         if cfg.pretrained_model_name_or_path:
@@ -119,7 +136,8 @@ class ObjectSystem:
                            cfg.pretrained_model_name_or_path)
             print(f"Loading pretrained shape model from "
                   f"{cfg.pretrained_model_name_or_path}")
-            ckpt_lib.load_module_weights(self.model, src, strict=True)
+            ckpt_lib.load_module_weights(
+                self.model, shard_for_mesh(src, self.mesh), strict=True)
         if cfg.weights:
             key = "system.weights"
             ignore = None
@@ -130,8 +148,9 @@ class ObjectSystem:
                     re.escape(m) for m in cfg.weights_ignore_modules)
                     + r")(\.|$)")
             src = _weights(key, cfg.weights)
-            ckpt_lib.load_module_weights(self.model, src, ignore=ignore,
-                                         strict=False)
+            ckpt_lib.load_module_weights(
+                self.model, shard_for_mesh(src, self.mesh), ignore=ignore,
+                strict=False)
         return self.model
 
     def _gt_xyz(self, batch, ray_o: torch.Tensor, ray_d: torch.Tensor

@@ -32,6 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.shard import gather_state_dict, shard_for_mesh
 from ..parallel.train_step import TrainState
 from .convert import state_dict_from_flat
 
@@ -80,10 +81,13 @@ class CheckpointManager:
     bit for bit.
 
     With a `mesh` of several ranks every rank calls `maybe_save` (ZeRO-1's
-    moment and EMA shards are gathered first, a collective) and rank 0
-    alone writes, between barriers; every rank restores, keeping its own
-    shard.  The file is the one-rank layout either way, so a checkpoint
-    moves across world sizes."""
+    moment and EMA shards are gathered first, then every tensor over
+    `model` and `pipe` into its whole in the reference's name,
+    parallel/shard.py: collectives) and rank 0 alone writes, between
+    barriers; every rank restores, cutting out its own tensor- and
+    pipeline-parallel part and keeping its own ZeRO-1 shard.  The file is
+    the one-rank layout either way, so a checkpoint moves across
+    layouts."""
 
     def __init__(self, directory: str, every_n_train_steps: int = 1000,
                  mesh=None):
@@ -116,11 +120,12 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"{step}.pt")
 
         def plain(tensors):
-            return (None if tensors is None else
-                    {k: t.detach() for k, t in tensors.items()})
+            return (None if tensors is None else gather_state_dict(
+                {k: t.detach() for k, t in tensors.items()}, self.mesh))
+        opt = state.optimizer.state_dict()
+        opt.update({k: plain(opt[k]) for k in ("mu", "nu", "acc")})
         whole = {"format": FORMAT, "step": step,
-                 "params": plain(state.params),
-                 "optimizer": state.optimizer.state_dict(),
+                 "params": plain(state.params), "optimizer": opt,
                  "ema_params": plain(state.full_ema())}
         if self.writes:
             torch.save(whole, path + ".tmp")
@@ -143,15 +148,22 @@ class CheckpointManager:
         ckpt = _torch_load(os.path.join(self.directory, f"{step}.pt"))
         if (ckpt["ema_params"] is None) != (not state_like.has_ema):
             raise ValueError("checkpoint and state disagree on EMA")
+
+        def mine(tensors):
+            return (None if tensors is None else
+                    shard_for_mesh(tensors, self.mesh))
+        params = mine(ckpt["params"])
         with torch.no_grad():
-            if set(ckpt["params"]) != set(state_like.params):
+            if set(params) != set(state_like.params):
                 raise KeyError("params: checkpoint keys differ from the "
                                "state's")
             for k, t in state_like.params.items():
-                t.copy_(ckpt["params"][k])
+                t.copy_(params[k])
         if state_like.has_ema:
-            state_like.load_ema(ckpt["ema_params"])
-        state_like.optimizer.load_state_dict(ckpt["optimizer"])
+            state_like.load_ema(mine(ckpt["ema_params"]))
+        opt = dict(ckpt["optimizer"])
+        opt.update({k: mine(opt[k]) for k in ("mu", "nu", "acc")})
+        state_like.optimizer.load_state_dict(opt)
         state_like.step = int(ckpt["step"])
         return state_like
 

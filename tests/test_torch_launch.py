@@ -230,12 +230,11 @@ def test_test_mode_keeps_its_own_dir(trained, tree):
 @pytest.mark.parametrize("key", ["model_parallel", "seq_parallel",
                                  "pipe_parallel"])
 def test_parallelism_keys_raise(tree, key):
-    """Tensor and pipeline parallelism are not ported; seq_parallel=2 is,
-    and on one process it does not divide the world size."""
+    """Tensor, sequence and pipeline parallelism are ported; an axis of 2
+    does not divide the world size of one process."""
     _, cfg = tree
-    err, match = ((ValueError, "world size 1") if key == "seq_parallel"
-                  else (NotImplementedError, f"trainer.{key}"))
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=f"trainer.{key}=2 does not divide "
+                                         f"the world size 1"):
         launch.main(["--config", cfg, "--train", "--max_steps", "1",
                      "--device", "cpu", f"trainer.{key}=2"])
 
@@ -243,10 +242,11 @@ def test_parallelism_keys_raise(tree, key):
 def test_zero1_raises_with_more_than_one_data_rank():
     """ZeRO-1 is ported: check_parallelism accepts it with one data rank
     and with two, alone and beside a seq ring."""
-    assert mesh.check_parallelism({"zero1": True}) == (1, 1)
-    assert mesh.check_parallelism({"zero1": True}, world_size=2) == (2, 1)
+    assert mesh.check_parallelism({"zero1": True}) == (1, 1, 1, 1)
+    assert mesh.check_parallelism({"zero1": True},
+                                  world_size=2) == (2, 1, 1, 1)
     assert mesh.check_parallelism({"zero1": True, "seq_parallel": 2},
-                                  world_size=4) == (2, 2)
+                                  world_size=4) == (2, 1, 2, 1)
 
 
 def test_launch_raises_without_a_card(tree, monkeypatch):

@@ -19,8 +19,9 @@ of 2), against the one-process train step of the same code:
   * sp = 2 (a 290-token DiT on the packed route, padded to 512: one full
     shard and one of 34 real rows) equals the one-process step with the
     same bars;
-  * a two-process `launch --train` with trainer.zero1: only rank 0 writes,
-    and its checkpoint restores on one process bit for bit.
+  * a two-process `launch --train` with trainer.zero1, and one with
+    trainer.model_parallel=2: only rank 0 writes, and its checkpoint
+    restores on one process bit for bit.
 """
 
 import os
@@ -73,7 +74,9 @@ def world(tmp_path_factory):
     argv = ["--config", str(cfg), "--train", "--max_steps", "2", "--device",
             "cpu", "--dist-backend", "gloo", "trainer.zero1=true"]
     inputs = dict(case=case, sp_case=sp_case, save_dir=str(tmp / "zero1"),
-                  one_dir=str(tmp / "one"), launch=argv)
+                  one_dir=str(tmp / "one"), launch=argv,
+                  launch_tp=argv[:-1] + ["trainer.model_parallel=2",
+                                         "tag=tp"])
     outs = run_world(parallel_cases, 2, tmp / "world", inputs)
     return dict(refs=refs, outs=outs, tmp=tmp, cfg=str(cfg))
 
@@ -171,11 +174,20 @@ def test_seq_parallel_step_equals_one_process(world):
 
 
 def test_two_process_launch_train(world):
+    _launch_restores(world, "launch")
+
+
+def test_two_process_launch_train_tensor_parallel(world):
+    """trainer.model_parallel=2: the checkpoint holds the whole tensors."""
+    _launch_restores(world, "launch_tp")
+
+
+def _launch_restores(world, key):
     from open_diffusiongs_tpu_torch import _register_builtins
     from open_diffusiongs_tpu_torch.systems.builder import (
         build_optimizer_config, build_system)
     from open_diffusiongs_tpu_torch.utils.config import load_config
-    r0, r1 = (o["launch"] for o in world["outs"])
+    r0, r1 = (o[key] for o in world["outs"])
     assert r1["writes"] == []
     assert r0["trial_dir"] == r1["trial_dir"] and r0["step"] == 2
     trial = r0["trial_dir"]
@@ -206,9 +218,9 @@ def test_rank_layout_and_backend_rules(monkeypatch):
     column; nccl refuses more local ranks than cards and names the flag;
     gloo shares a card."""
     from open_diffusiongs_tpu_torch.parallel import mesh
-    rows, cols = mesh.rank_layout(8, 4)
-    assert rows == [[0, 1, 2, 3], [4, 5, 6, 7]]
-    assert cols == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    groups = mesh.axis_groups(8, sp=4)
+    assert groups["seq"] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert groups["data"] == [[0, 4], [1, 5], [2, 6], [3, 7]]
     one = mesh.Mesh(world=8, rank=6, sp=4)
     assert (one.dp, one.data_rank, one.seq_rank) == (2, 1, 2)
     assert mesh.default_backend(torch.device("cpu")) == "gloo"

@@ -20,7 +20,7 @@ import torch
 import torch.multiprocessing as mp
 
 
-def run_world(target, world: int, tmp_path, *args, timeout: float = 240.0):
+def run_world(target, world: int, tmp_path, *args, timeout: float = 900.0):
     """Every rank's return value; a rank that fails stops the others."""
     ctx = mp.get_context("spawn")
     os.makedirs(str(tmp_path), exist_ok=True)
@@ -167,8 +167,11 @@ def train_steps(case, mesh, steps, rows, zero1=False, resume=None,
     """`steps` train steps of the tiny system on batch rows `rows` (this
     data rank's), the step's draws from seed 100 + step; optionally
     restored from / saved to a checkpoint directory first / last.  Returns
-    each step's metrics and the whole state (shards gathered)."""
+    each step's metrics, the whole state (ZeRO-1 shards gathered, tensor-
+    and pipeline-parallel parts put together) and the last step's raw
+    gradients, whole."""
     from open_diffusiongs_tpu_torch.parallel import train_step as ts
+    from open_diffusiongs_tpu_torch.parallel.shard import gather_state_dict
     from open_diffusiongs_tpu_torch.utils.checkpoint import \
         CheckpointManager
     system = build_tiny_system(case, mesh)
@@ -184,17 +187,25 @@ def train_steps(case, mesh, steps, rows, zero1=False, resume=None,
         opt, ema_decay=0.9)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
              for k, v in case["batch"].items()}
+    # each step's raw gradients, before the optimizer clips them in place
+    grads = {}
+    for k, p in params.items():
+        p.register_post_accumulate_grad_hook(
+            lambda p, k=k: grads.__setitem__(k, p.grad.detach().clone()))
     metrics = []
     for _ in range(steps):
         state, m = step_fn(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
     if save:
         CheckpointManager(save, mesh=mesh).maybe_save(state, force=True)
-    clone = lambda d: {k: v.detach().clone() for k, v in d.items()}
+
+    def whole(d):
+        return {k: v.detach().clone()
+                for k, v in gather_state_dict(d, mesh).items()}
     sd = opt.state_dict()
-    return dict(metrics=metrics, params=clone(state.params),
-                ema=clone(state.full_ema()), mu=clone(sd["mu"]),
-                nu=clone(sd["nu"]), count=sd["count"],
+    return dict(metrics=metrics, params=whole(state.params),
+                ema=whole(state.full_ema()), mu=whole(sd["mu"]),
+                nu=whole(sd["nu"]), count=sd["count"], grads=whole(grads),
                 zero1=type(opt).__name__ == "Zero1Optimizer",
                 shard=[t.clone() for t in (state.ema_shard or [])])
 
@@ -212,6 +223,7 @@ def parallel_cases(mesh_init, inputs):
     mesh = mesh_init(seq_parallel=2)                 # dp = 1, sp = 2
     out["sp2"] = train_steps(inputs["sp_case"], mesh, 1, slice(0, 2))
     out["launch"] = _launch_train(mesh.rank, inputs["launch"])
+    out["launch_tp"] = _launch_train(mesh.rank, inputs["launch_tp"])
     return out
 
 
@@ -249,11 +261,151 @@ def _launch_train(rank, argv):
         if rank == 1:
             builtins.open, torch.save = real_open, real_save
             os.makedirs, os.replace = real_makedirs, real_replace
-    state = record["state"]
+    from open_diffusiongs_tpu_torch.parallel.shard import gather_state_dict
+    state, mesh = record["state"], record["mesh"]
+
+    def whole(d):
+        return {k: v.detach().clone()
+                for k, v in gather_state_dict(d, mesh).items()}
     return dict(writes=writes, trial_dir=record["trial_dir"],
-                step=state.step,
-                params={k: v.detach().clone()
-                        for k, v in state.params.items()},
-                ema={k: v.clone() for k, v in state.full_ema().items()},
-                mu={k: v.clone() for k, v in
-                    state.optimizer.state_dict()["mu"].items()})
+                step=state.step, params=whole(state.params),
+                ema=whole(state.full_ema()),
+                mu=whole(state.optimizer.state_dict()["mu"]))
+
+
+def _shard_heads(x, tp, m):
+    """Model rank m's heads (a contiguous column block) of [b, l, h·dh]."""
+    w = x.shape[-1] // tp
+    return x[..., m * w:(m + 1) * w]
+
+
+def _stack_case(case, mesh, rows, **kw):
+    """The port's DiTStack of `case` (a qk_norm DiTBlock where the case
+    says so; its whole state dict cut to this rank's part) on batch rows
+    `rows`: output, the input's gradient and every parameter's gradient,
+    whole, of sum(out * r)."""
+    from open_diffusiongs_tpu_torch.models import transformer as ttr
+    from open_diffusiongs_tpu_torch.parallel.shard import (
+        gather_state_dict, shard_for_mesh)
+    x = torch.from_numpy(case["x"][rows]).requires_grad_()
+    c = torch.from_numpy(case["c"][rows])
+    r = torch.from_numpy(case["r"][rows])
+    if case.get("qk_norm"):
+        mod = ttr.DiTBlock(case["width"], case["heads"], qk_norm=True, **kw)
+        blocks = [mod]
+    else:
+        mod = blocks = ttr.DiTStack(case["width"], case["heads"],
+                                    case["layers"], checkpoint=True, **kw)
+    mod.load_state_dict(shard_for_mesh(case["sd"], mesh, stack=""),
+                        strict=True)
+    y = mod(x, c)
+    (y * r).sum().backward()
+    grads = gather_state_dict({n: p.grad for n, p in mod.named_parameters()},
+                              mesh, stack="")
+    return dict(y=y.detach(), gx=x.grad, grads=grads,
+                packed=[b.attn.packed for b in blocks])
+
+
+def _quant_case(case, mesh, rows):
+    """The W8A8 stack on rows `rows`, tensor-parallel over `mesh` and on
+    one rank, under no_grad."""
+    from open_diffusiongs_tpu_torch.models import transformer as ttr
+    from open_diffusiongs_tpu_torch.parallel.shard import shard_for_mesh
+    x = torch.from_numpy(case["x"][rows])
+    c = torch.from_numpy(case["c"][rows])
+    out = {}
+    for key, m in (("tp", mesh), ("one", None)):
+        mod = ttr.DiTStack(case["width"], case["heads"], case["layers"],
+                           quant_int8=True, attn_impl="xla", model=m)
+        mod.load_state_dict(shard_for_mesh(case["sd"], m, stack=""),
+                            strict=True)
+        with torch.no_grad():
+            out[key] = mod(x, c)
+    return out
+
+
+def _ring_tp_case(mesh, case):
+    """Ring attention on the local heads: rank (s, m) holds rows s and
+    heads m of q, k, v; output and gradient of its part of
+    sum(out[:, :l_real]^2)."""
+    from open_diffusiongs_tpu_torch.parallel.ring import ring_attention
+    q, k, v, h, l_real = case
+    s, m, tp = mesh.seq_rank, mesh.model_rank, mesh.tp
+    lq = q.shape[1] // mesh.sp
+    qkv = torch.cat([_shard_heads(torch.from_numpy(a[:, s * lq:(s + 1) * lq]),
+                                  tp, m) for a in (q, k, v)], -1)
+    qkv.requires_grad_()
+    o = ring_attention(qkv, num_heads=h // tp, l_real=l_real, mesh=mesh)
+    real = max(0, min(lq, l_real - s * lq))
+    (o[:, :real] ** 2).sum().backward()
+    return o.detach(), qkv.grad
+
+
+def tensor_parallel_cases(mesh_init, inputs):
+    """Every case of tests/test_torch_tensor_parallel.py on one world of 4."""
+    from open_diffusiongs_tpu_torch.parallel import tensor_parallel
+    out = {}
+    mesh = mesh_init(seq_parallel=1, model_parallel=2)     # dp = 2, tp = 2
+    rows = slice(mesh.data_rank, mesh.data_rank + 1)
+    tensor_parallel.BYTES = 0
+    out["stack"] = _stack_case(inputs["stack"], mesh, rows, model=mesh)
+    out["stack_bytes"] = tensor_parallel.BYTES
+    out["general"] = _stack_case(inputs["general"], mesh, rows, model=mesh)
+    out["qk_norm"] = _stack_case(inputs["qk_norm"], mesh, rows, model=mesh)
+    out["quant"] = _quant_case(inputs["quant"], mesh, rows)
+    case = inputs["case"]
+    out["step"] = train_steps(case, mesh, 1, rows)
+    out["ddp"] = train_steps(case, mesh, 2, rows)
+    out["zero1"] = train_steps(case, mesh, 2, rows, zero1=True,
+                               save=inputs["save_dir"])
+    out["resume"] = train_steps(case, mesh, 0, rows, zero1=True,
+                                resume=inputs["one_dir"])
+    mesh = mesh_init(seq_parallel=2, model_parallel=2)     # sp = 2, tp = 2
+    out["ring"] = _ring_tp_case(mesh, inputs["ring"])
+    return out
+
+
+def _toy_case(mesh, case, n_microbatches):
+    """JAX's toy stage (tanh(h @ W + c) per layer) through pipeline_apply:
+    output, and the gradients of sum(out^2) for this stage's W, x and c."""
+    from open_diffusiongs_tpu_torch.parallel.pipeline import pipeline_apply
+    params, x, c = (torch.from_numpy(a) for a in case)
+    per = params.shape[0] // mesh.pp
+    w = params[mesh.pipe_rank * per:(mesh.pipe_rank + 1) * per]
+    w = w.clone().requires_grad_()
+    x = x.clone().requires_grad_()
+    c = c.clone().requires_grad_()
+
+    def stage(h, c_mb):
+        for i in range(w.shape[0]):
+            h = torch.tanh(h @ w[i] + c_mb)
+        return h
+    y = pipeline_apply(mesh, stage, x, c, n_microbatches, params=[w])
+    (y ** 2).sum().backward()
+    return y.detach(), w.grad, x.grad, c.grad
+
+
+def _serve_case(mesh, case):
+    """`DiffusionGSPipeline.batch` of the tiny system over `mesh`'s data
+    ranks: each element's renders and Gaussian centres."""
+    from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
+    pipe = DiffusionGSPipeline(build_tiny_system(case, mesh))
+    outs = pipe.batch(case["images"], mesh=mesh, **case["kw"])
+    return [(o.renders, o.gaussians.xyz) for o in outs]
+
+
+def pipeline_parallel_cases(mesh_init, inputs):
+    """Every case of tests/test_torch_pipeline_parallel.py on one world of
+    2."""
+    out = {}
+    mesh = mesh_init(pipe_parallel=2)                       # pp = 2
+    out["toy"] = {mb: _toy_case(mesh, inputs["toy"], mb) for mb in (1, 2)}
+    out["stack"] = _stack_case(inputs["stack"], mesh, slice(0, 2),
+                               pipe=mesh)
+    case = inputs["case"]
+    out["train"] = train_steps(case, mesh, 1, slice(0, 2))
+    out["resume"] = train_steps(case, mesh, 0, slice(0, 2),
+                                resume=inputs["one_dir"])
+    mesh = mesh_init(seq_parallel=1)                        # dp = 2
+    out["serve"] = _serve_case(mesh, inputs["serve"])
+    return out
