@@ -3,8 +3,9 @@
 the DiT's general attention route (sampling and training), serving from a
 checkpoint at 256^2 and 512^2, and the training / evaluation CLI (object
 training with resume and export, scene eval with its metric CLI) once on
-one NVIDIA GPU, and its data, ZeRO-1 and sequence parallelism in two
-ranks that share the card.
+one NVIDIA GPU, its data, ZeRO-1, sequence, tensor and pipeline
+parallelism in two ranks that share the card, and the synthetic
+G-Objaverse and RE10K generators with a short training run on each tree.
 
   python3 chip_smoke.py
 
@@ -305,6 +306,34 @@ Phases, one summary line each (every failure raises and exits non-zero):
                each case's seconds per step beside the one-process step,
                labelled as two processes sharing one card, not as
                scaling.  ZeRO-1 x tp = 2 (four ranks) is a CPU test only.
+  19. synthetic trees
+               a. the port's generators (tools/make_synthetic_objaverse.py:
+                  one object of 256 Gaussians, 40 views at 64^2;
+                  tools/make_synthetic_re10k.py: one room at wall step
+                  0.5 with 4 lobes, 5 frames at 64^2) on the card and on
+                  the CPU: alpha, rgb x alpha, and rgb and ray depth where
+                  both alphas > 0.3 (the object), rgb (the scene) within
+                  atol 2e-5; the PNG bytes within 1 LSB; the overflow
+                  counters and binned entries equal; 40 blend launches an
+                  object, one a frame; then at full size, where the
+                  object's capacities clip (both counters nonzero): views
+                  0, 8, 28, 39 of a 4,096-Gaussian object at 256^2 (D = 16,
+                  K = 512) and the first 8 frames of b's room (wall step
+                  0.18, 10 lobes; D = 256, K = 4096), card against CPU:
+                  the counters equal, at most 0.1 % of the pixels apart
+                  beyond the same bars, and each apart pixel a threshold
+                  flip (it agrees once the CPU's 1/255 skip or 1e-4 stop
+                  moves by 0.1 %); one blend launch a view;
+               b. 2 objects and 1 scene of 48 frames at 256^2 written on
+                  the card (seconds per object and per scene, their
+                  counters), then launch --train for 20 steps with an
+                  eval every 10 on each tree with its recipe
+                  (configs/diffusionGS_rel.yaml, 4 + 6 views;
+                  configs/diffusionGS_scene.yaml, 4 input + 7 rendered
+                  views; docs/CONVERGENCE.md's b = 1, LPIPS off, lr 5e-5):
+                  finite metrics, eval rows at 0, 10 and 20, launches
+                  equal the derived counts; losses, eval PSNR, seconds a
+                  step, overflow counters and peak memory printed.
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -4235,6 +4264,326 @@ def par18_gates(res: dict, outs: list) -> None:
                              "lists")
 
 
+SYNTH_ABS_BOUND = BLEND_ABS_BOUND   # card vs CPU renders, the raster bar
+SYNTH_DEPTH_ALPHA = 0.3             # depth compared where both alphas pass
+SYNTH_SMALL = {"res": 64, "gaussians": 256, "frames": 5, "wall_step": 0.5,
+               "lobes": 4}
+SYNTH_FULL = {"objects": 2, "scenes": 1, "frames": 48, "res": 256}
+# 19a at full size, where the object's capacities clip: 4 of an object's
+# 40 views (both rings, the lower aux view, the top) and the first chunk
+# of 8 frames of 19b's room (seed 0), card against CPU
+SYNTH_CLIP_VIEWS = (0, 8, 28, 39)
+# a pixel is apart when any compared value differs by more than the raster
+# bar; at full size a few pixels hold a Gaussian whose alpha sits on the
+# blend's 1/255 skip (or a transmittance on its 1e-4 stop), which f32
+# rounding flips: each apart pixel must agree once the CPU's threshold
+# moves by 0.1 % (SYNTH_FLIP_MOVES), and at most SYNTH_FLIP_SHARE of the
+# pixels may be apart (a 0.1 % threshold move itself flips 0.2-0.3 % of
+# them on these inputs)
+SYNTH_FLIP_MOVES = (("ALPHA_MIN", 1.001), ("ALPHA_MIN", 0.999),
+                    ("EARLY_STOP_T", 1.001), ("EARLY_STOP_T", 0.999))
+SYNTH_FLIP_SHARE = 1e-3
+SYNTH_STEPS, SYNTH_EVAL_EVERY = 20, 10
+# after tools/train_protocol.py's PROTOCOL (docs/CONVERGENCE.md's b = 1,
+# LPIPS off, lr 5e-5): an eval every SYNTH_EVAL_EVERY steps, the final
+# save only
+SYNTH_OVERRIDES = [f"trainer.eval_every_n_steps={SYNTH_EVAL_EVERY}",
+                   "use_timestamp=false",
+                   "checkpoint.every_n_train_steps=1000000"]
+
+
+def png_bytes(rgb, alpha=None):
+    """The uint8 image the generators write: (rgb[a] * 255) truncated."""
+    import numpy as np
+    img = rgb if alpha is None else np.concatenate([rgb, alpha[..., None]],
+                                                   axis=-1)
+    return (img * 255).astype(np.uint8).astype(np.int16)
+
+
+def synth_card_vs_cpu(torch, dev) -> dict:
+    """19a: both generators' renders at a small size on the card and on
+    the CPU, the card's blend launches per object / scene."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_objaverse as mo
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_re10k as mr
+    s = SYNTH_SMALL
+    out = {}
+
+    def on_card(fn, *args):
+        reset_launches(blend_kernel)
+        got = fn(*args, dev)
+        torch.cuda.synchronize()
+        return got, blend_kernel.LAUNCHES
+
+    gauss = mo.make_scene(np.random.default_rng(0), s["gaussians"])
+    card, launches = on_card(mo.render_object, gauss, s["res"])
+    cpu = mo.render_object(gauss, s["res"], "cpu")
+    (rgb, alpha, depth, _, cnt), (rgb_c, alpha_c, depth_c, _, cnt_c) = \
+        card, cpu
+    both = (alpha > SYNTH_DEPTH_ALPHA) & (alpha_c > SYNTH_DEPTH_ALPHA)
+    out["object"] = {
+        "alpha_max_abs_err": float(np.abs(alpha - alpha_c).max()),
+        "rgb_times_alpha_max_abs_err": float(np.abs(
+            rgb * alpha[..., None] - rgb_c * alpha_c[..., None]).max()),
+        "rgb_max_abs_err_alpha_gt_0.3": float(np.abs(rgb - rgb_c)[both]
+                                              .max()),
+        "depth_max_abs_err_alpha_gt_0.3": float(np.abs(depth - depth_c)[both]
+                                                .max()),
+        "png_max_lsb": int(np.abs(png_bytes(rgb, alpha)
+                                  - png_bytes(rgb_c, alpha_c)).max()),
+        "counters": cnt, "counters_cpu": cnt_c,
+        "blend_launches_per_object": launches}
+    rng = np.random.default_rng(0)
+    room = mr.make_room(rng, step=s["wall_step"], n_lobes=s["lobes"])
+    c2ws = mr.trajectory(rng, s["frames"])
+    (rgb, cnt), launches = on_card(mr.render_scene, room, c2ws, s["res"])
+    rgb_c, cnt_c = mr.render_scene(room, c2ws, s["res"], "cpu")
+    out["scene"] = {
+        "n_gauss": int(room.xyz.shape[1]),
+        "rgb_max_abs_err": float(np.abs(rgb - rgb_c).max()),
+        "png_max_lsb": int(np.abs(png_bytes(rgb) - png_bytes(rgb_c)).max()),
+        "counters": cnt, "counters_cpu": cnt_c,
+        "blend_launches_per_scene": launches}
+    return out
+
+
+def object_apart(got, ref):
+    """[V, h, w] bool: the pixels where two object renders ((rgb, alpha,
+    depth, ...) as `render_object` returns them) differ by more than the
+    raster bar in alpha or rgb x alpha, or, where both alphas > 0.3, in
+    rgb or depth."""
+    import numpy as np
+    (rgb, alpha, depth), (rgb_r, alpha_r, depth_r) = got[:3], ref[:3]
+    bar = SYNTH_ABS_BOUND
+    both = (alpha > SYNTH_DEPTH_ALPHA) & (alpha_r > SYNTH_DEPTH_ALPHA)
+    return ((np.abs(alpha - alpha_r) > bar)
+            | (np.abs(rgb * alpha[..., None] - rgb_r * alpha_r[..., None])
+               > bar).any(-1)
+            | both & ((np.abs(rgb - rgb_r) > bar).any(-1)
+                      | (np.abs(depth - depth_r) > bar)))
+
+
+def scene_apart(got, ref):
+    """[F, h, w] bool: the pixels where two scene renders ((rgb, counters)
+    as `render_scene` returns them) differ by more than the raster bar."""
+    import numpy as np
+    return (np.abs(got[0] - ref[0]) > SYNTH_ABS_BOUND).any(-1)
+
+
+def unexplained_flips(apart, rerender, apart_fn, ref):
+    """The pixels of `apart` that no threshold move explains: `rerender()`
+    (the CPU render) is re-made with the blend's skip or stop threshold
+    moved as SYNTH_FLIP_MOVES say, and a pixel is explained once one such
+    render agrees with `ref` (the card's) there."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    left = apart.copy()
+    for name, scale in SYNTH_FLIP_MOVES:
+        if not left.any():
+            break
+        keep = getattr(blend_kernel, name)
+        setattr(blend_kernel, name, keep * scale)
+        try:
+            got = rerender()
+        finally:
+            setattr(blend_kernel, name, keep)
+        left &= apart_fn(got, ref)
+    return left
+
+
+def synth_clipped_card_vs_cpu(torch, dev) -> dict:
+    """19a at full size: SYNTH_CLIP_VIEWS of a 4,096-Gaussian object at
+    256^2 (D = 16, K = 512, where both counters read nonzero) and the first
+    8-frame chunk of 19b's room (D = 256, K = 4096) on the card and the CPU;
+    the apart pixels (`object_apart`, `scene_apart`), those no threshold
+    flip explains, the counters and the card's blend launches."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_objaverse as mo
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_re10k as mr
+    res = SYNTH_FULL["res"]
+    gauss = mo.make_scene(np.random.default_rng(0), 4096)
+    rng = np.random.default_rng(0)            # 19b's first room
+    room = mr.make_room(rng)
+    c2ws = mr.trajectory(rng, SYNTH_FULL["frames"])[:mr.CHUNK_VIEWS]
+    # (render, apart_fn, where the counters are, the value whose largest
+    # error is printed: alpha for the object, rgb for the scene)
+    cases = {
+        "object": (lambda d: mo.render_object(gauss, res, d,
+                                              views=SYNTH_CLIP_VIEWS),
+                   object_apart, 4, 1),
+        "scene": (lambda d: mr.render_scene(room, c2ws, res, d),
+                  scene_apart, 1, 0)}
+    out = {}
+    for key, (render, apart_fn, at, val) in cases.items():
+        reset_launches(blend_kernel)
+        card = render(dev)
+        torch.cuda.synchronize()
+        launches = blend_kernel.LAUNCHES
+        cpu = render("cpu")
+        apart = apart_fn(cpu, card)
+        left = unexplained_flips(apart, lambda: render("cpu"), apart_fn,
+                                 card)
+        err = np.abs(cpu[val] - card[val]).reshape(apart.shape + (-1,)
+                                                   ).max(-1)
+        name = ("alpha", "rgb")[val == 0]
+        out[key] = {"pixels": int(apart.size),
+                    "apart_pixels": int(apart.sum()),
+                    "apart_share": float(apart.mean()),
+                    "unexplained_pixels": int(left.sum()),
+                    f"{name}_max_abs_err": float(err.max()),
+                    f"{name}_max_abs_err_not_apart": float(err[~apart].max()),
+                    "counters": card[at], "counters_cpu": cpu[at],
+                    "blend_launches": launches}
+    out["scene"]["n_gauss"] = int(room.xyz.shape[1])
+    return out
+
+
+def synth_launch(torch, dev, recipe: str, tree: str, tmp: str) -> dict:
+    """19b: `launch --train` for SYNTH_STEPS steps on a generated tree with
+    the recipe's config and the protocol's overrides; its metrics, eval
+    rows, launches and peak."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
+    from open_diffusiongs_tpu_torch.tools.train_protocol import (PROTOCOL,
+                                                                 RECIPES)
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    config, data = RECIPES[recipe]
+    config = os.path.join(ROOT, config)
+    name = f"synth_{recipe}"
+    overrides = [f"exp_root_dir={tmp}/outputs", f"name={name}", *data(tree),
+                 *PROTOCOL, *SYNTH_OVERRIDES]
+    cfg = load_config(config, cli_args=overrides, makedirs=False)
+    views = (int(cfg.data["gen_views"]) + int(cfg.data["sel_views"])
+             if "gen_views" in cfg.data else
+             int(cfg.data["sel_views"]) + int(cfg.data["sel_views_train"]))
+    record, counts, call = launch_call(torch, dev, [
+        "--config", config, "--train", "--device", dev.type, "--max_steps",
+        str(SYNTH_STEPS), *overrides], (attention, blend_kernel))
+    trial = record["trial_dir"]
+    drop_record(torch, record)
+    rows = read_csv(os.path.join(trial, "metrics.csv"))
+    evals = read_csv(os.path.join(trial, "eval_metrics.csv"))
+    col = {k: rows[0].index(k) for k in rows[0]}
+    ecol = {k: evals[0].index(k) for k in evals[0]}
+    n_evals = SYNTH_STEPS // SYNTH_EVAL_EVERY + 1
+    out = {"config": os.path.relpath(config, ROOT), "views_per_step": views,
+           "losses": [float(r[col["loss"]]) for r in rows[1:]],
+           "seconds_per_step": [1.0 / float(r[col["steps_per_sec"]])
+                                for r in rows[1:]],
+           "eval_steps": [int(r[0]) for r in evals[1:]],
+           "eval_psnr": [float(r[ecol["psnr"]]) for r in evals[1:]],
+           "overflow": {k: [float(r[col[k]]) for r in rows[1:]]
+                        for k in ("overflow_tiles", "overflow_gaussians",
+                                  "overflow_frac")},
+           "launches": counts,
+           "expected_launches": expected_counts(
+               steps=SYNTH_STEPS, evals=n_evals, views=views),
+           "call": call}
+    if not all(np.isfinite(float(x)) for r in rows[1:] + evals[1:]
+               for x in r[1:]):
+        raise AssertionError(f"19b {name}: non-finite metrics")
+    if out["eval_steps"] != list(range(0, SYNTH_STEPS + 1,
+                                       SYNTH_EVAL_EVERY)):
+        raise AssertionError(f"19b {name}: eval rows {out['eval_steps']}")
+    if counts != out["expected_launches"]:
+        raise AssertionError(f"19b {name}: launches {counts} != "
+                             f"{out['expected_launches']}")
+    return out
+
+
+def phase_synthetic(torch, dev, tmp: str) -> dict:
+    """19: the port's synthetic G-Objaverse and RE10K generators on the
+    card against the CPU at a small size (19a), then their trees at full
+    size on the card and 20 steps of `launch --train` on each with its
+    recipe (19b; module docstring)."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_objaverse as mo
+    from open_diffusiongs_tpu_torch.tools import make_synthetic_re10k as mr
+    small = synth_card_vs_cpu(torch, dev)
+    clipped = synth_clipped_card_vs_cpu(torch, dev)
+    f = SYNTH_FULL
+    obja, re10k = os.path.join(tmp, "obja"), os.path.join(tmp, "re10k")
+    gen = {}
+    for key, tool, argv in (
+            ("objects", mo, ["--device", dev.type, "--out", obja,
+                             "--objects", str(f["objects"]),
+                             "--res", str(f["res"])]),
+            ("scenes", mr, ["--device", dev.type, "--out", re10k,
+                            "--scenes", str(f["scenes"]),
+                            "--frames", str(f["frames"]),
+                            "--res", str(f["res"])])):
+        reset_launches(blend_kernel)
+        t0 = time.perf_counter()
+        summary = tool.main(argv)
+        gen[key] = {"seconds": time.perf_counter() - t0,
+                    "per_item": summary.get("per_object",
+                                            summary.get("per_scene")),
+                    "blend_launches": blend_kernel.LAUNCHES}
+    collect_garbage()
+    torch.cuda.empty_cache()
+    train = {"object": synth_launch(torch, dev, "object", obja, tmp),
+             "scene": synth_launch(torch, dev, "scene", re10k, tmp)}
+    out = {"card_vs_cpu": small, "card_vs_cpu_full_size": clipped,
+           "generate": gen, "train": train,
+           "sizes": {"small": SYNTH_SMALL, "full": SYNTH_FULL},
+           "card": card_line()}
+    out["launches"] = {k: sum(t["launches"][k] for t in train.values())
+                       for k in train["object"]["launches"]}
+    out["launches"]["blend_kernel.LAUNCHES"] += sum(
+        g["blend_launches"] for g in gen.values()) + \
+        small["object"]["blend_launches_per_object"] + \
+        small["scene"]["blend_launches_per_scene"] + \
+        sum(c["blend_launches"] for c in clipped.values())
+    print(f"[19 synthetic trees] {json.dumps(out)}", flush=True)
+    o, s = small["object"], small["scene"]
+    checks = [(f"19a object {k}", o[k], SYNTH_ABS_BOUND)
+              for k in ("alpha_max_abs_err", "rgb_times_alpha_max_abs_err",
+                        "rgb_max_abs_err_alpha_gt_0.3",
+                        "depth_max_abs_err_alpha_gt_0.3")]
+    checks += [("19a scene rgb_max_abs_err", s["rgb_max_abs_err"],
+                SYNTH_ABS_BOUND),
+               ("19a object png_max_lsb", o["png_max_lsb"], 1),
+               ("19a scene png_max_lsb", s["png_max_lsb"], 1)]
+    for what, val, bar in checks:
+        if not val <= bar:
+            raise AssertionError(f"{what} {val:.4g} > {bar}")
+    for k, r in (("object", o), ("scene", s)):
+        if r["counters"] != r["counters_cpu"]:
+            raise AssertionError(f"19a {k} counters: card {r['counters']} "
+                                 f"!= CPU {r['counters_cpu']}")
+    for k, r in clipped.items():
+        if r["counters"] != r["counters_cpu"]:
+            raise AssertionError(f"19a full-size {k} counters: card "
+                                 f"{r['counters']} != CPU "
+                                 f"{r['counters_cpu']}")
+        if not (r["apart_share"] <= SYNTH_FLIP_SHARE
+                and r["unexplained_pixels"] == 0):
+            raise AssertionError(f"19a full-size {k}: {r['apart_pixels']} "
+                                 f"of {r['pixels']} pixels apart, "
+                                 f"{r['unexplained_pixels']} not a "
+                                 f"threshold flip")
+    if not (clipped["object"]["counters"]["overflow_tiles"] > 0
+            and clipped["object"]["counters"]["overflow_gaussians"] > 0):
+        raise AssertionError(f"19a full-size object: the capacities did not "
+                             f"clip {clipped['object']['counters']}")
+    if [c["blend_launches"] for c in clipped.values()] != [
+            len(SYNTH_CLIP_VIEWS), mr.CHUNK_VIEWS]:
+        raise AssertionError(f"19a full-size blend launches {clipped}")
+    want = {"object": 40, "scene": SYNTH_SMALL["frames"]}
+    got = {"object": o["blend_launches_per_object"],
+           "scene": s["blend_launches_per_scene"]}
+    if got != want:
+        raise AssertionError(f"19a blend launches {got} != {want}")
+    if gen["objects"]["blend_launches"] != 40 * f["objects"] or \
+            gen["scenes"]["blend_launches"] != f["frames"] * f["scenes"]:
+        raise AssertionError(f"19b generator launches {gen}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4327,6 +4676,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         par18 = timed("18 tensor / pipeline parallel, serving",
                       phase_parallel18, torch, dev, tmp)
+    torch.cuda.empty_cache()
+    # 19's trees and trial dirs: deleted on the way out
+    with tempfile.TemporaryDirectory() as tmp:
+        synth = timed("19 synthetic trees", phase_synthetic, torch, dev, tmp)
     ring = {k: parallel["sp2"][k] for k in ("step_launches",
                                             "sampler_launches")}
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
@@ -4360,6 +4713,11 @@ def main() -> int:
                 par18["dp2_serving"][0]["launches_per_rank"][serving_key]
         return out
 
+    def synth_launches(counter):
+        """A row's launches in phase 19: the generators' renders (19a on
+        the card, 19b) and the two 20-step `launch --train` runs."""
+        return {"launches_synthetic": synth["launches"][counter]}
+
     src = "open_diffusiongs_tpu_torch/csrc/"
     density = serving["density"][1]     # phase 5's asset at 256
     t64, t48 = (general_kernels["times"][k] for k in ("h16_d64", "h16_d48"))
@@ -4375,7 +4733,8 @@ def main() -> int:
          "launches_512": sample_512["init"]["launches"]["attention"],
          **cli_launches("attention.LAUNCHES"),
          "launches_dp2_serving_per_rank":
-             par18["dp2_serving"][0]["launches_per_rank"]["attention"]},
+             par18["dp2_serving"][0]["launches_per_rank"]["attention"],
+         **synth_launches("attention.LAUNCHES")},
         {"name": "blend_tiles", "route": "cuda",
          "source": src + "blend_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:63",
@@ -4385,7 +4744,8 @@ def main() -> int:
          **roof(blend[0]), "library_ms": None, **trained_times(blend),
          "launches_512": sample_512["init"]["launches"]["blend"],
          **cli_launches("blend_kernel.LAUNCHES"),
-         **par18_launches("blend_kernel.LAUNCHES", "blend")},
+         **par18_launches("blend_kernel.LAUNCHES", "blend"),
+         **synth_launches("blend_kernel.LAUNCHES")},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -4405,7 +4765,8 @@ def main() -> int:
          "split_extent_max_abs_err": split["max_abs_err_fwd"],
          "ms_ring_step_L16896_sp2":
              split["ring_step_L16896_sp2"]["fwd_stats_ms"],
-         **par18_launches("attention.LAUNCHES_STATS")},
+         **par18_launches("attention.LAUNCHES_STATS"),
+         **synth_launches("attention.LAUNCHES_STATS")},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
@@ -4420,7 +4781,8 @@ def main() -> int:
              ring["step_launches"]["LAUNCHES_BWD"],
          "split_extent_max_abs_err": split["max_abs_err_bwd"],
          "ms_ring_step_L16896_sp2": split["ring_step_L16896_sp2"]["bwd_ms"],
-         **par18_launches("attention.LAUNCHES_BWD")},
+         **par18_launches("attention.LAUNCHES_BWD"),
+         **synth_launches("attention.LAUNCHES_BWD")},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
@@ -4431,7 +4793,8 @@ def main() -> int:
          "library_ms": None,
          "launches_512": train_512["launches"]["blend_bwd"],
          **cli_launches("blend_kernel.LAUNCHES_BWD"),
-         **par18_launches("blend_kernel.LAUNCHES_BWD")},
+         **par18_launches("blend_kernel.LAUNCHES_BWD"),
+         **synth_launches("blend_kernel.LAUNCHES_BWD")},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",

@@ -290,11 +290,13 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
         run_eval()
     t0 = t_wait = time.time()
     loader_wait = 0.0
+    device_batch = None
     for batch in loader:
         loader_wait += time.time() - t_wait
         if step >= max_steps:
             break
-        state, metrics = step_fn(state, to_device(batch, device))
+        device_batch = to_device(batch, device)
+        state, metrics = step_fn(state, device_batch)
         step += 1
         if eval_every and step % eval_every == 0:
             run_eval()
@@ -316,6 +318,9 @@ def train(cfg, args, system, state, dataset, ckpt, device, record):
         _save(ckpt, state, step, record)
         t_wait = time.time()
     _save(ckpt, state, step, record, force=True)
+    # the loop's own step, its last batch and the eval's batch, for callers
+    # that time or re-evaluate the trained state (tools/train_protocol.py)
+    record.update(step_fn=step_fn, batch=device_batch, eval_batch=eval_batch)
     if writer:
         writer.close()
     if wandb_run:
