@@ -4,10 +4,15 @@ the DiT's general attention route (sampling and training), serving from a
 checkpoint at 256^2 and 512^2, and the training / evaluation CLI (object
 training with resume and export, scene eval with its metric CLI) once on
 one NVIDIA GPU, its data, ZeRO-1, sequence, tensor and pipeline
-parallelism in two ranks that share the card, and the synthetic
-G-Objaverse and RE10K generators with a short training run on each tree.
+parallelism in two ranks that share the card, the synthetic
+G-Objaverse and RE10K generators with a short training run on each tree,
+and the four training recipes as their configs define them, LPIPS on.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --recipe-memory
+
+The second measures each recipe's peak memory against its batch size
+instead (whether phase 20 can run it at its own) and runs no phase.
 
 Phases, one summary line each (every failure raises and exits non-zero):
   1. device    card name / power limit (nvidia-smi), torch, CUDA, nvcc and
@@ -169,7 +174,13 @@ Phases, one summary line each (every failure raises and exits non-zero):
                over 16 scenes.  Printed: seconds for the batch and per
                scene split at synchronized edges into load, sampler,
                dumps (npz + grid PNG), trajectory videos and PLY + path
-               video, peak memory, the overflow counters.
+               video, peak memory, the overflow counters.  Then LPIPS:
+               the port's tools/convert_lpips_weights.py writes an NPZ
+               from synthetic full-spec torchvision-VGG16 and lpips-head
+               state dicts (torch.save, seeded), the metric CLI runs again
+               with --lpips-weights and prints lpips beside PSNR / SSIM,
+               and one scene's LPIPS on the card is held against the CPU
+               (rtol 2e-4).
   15. serving surface
                a. the density stage on a synthetic shell of 20k
                   Gaussians at resolution 128 (the twin on every slab),
@@ -334,6 +345,33 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   finite metrics, eval rows at 0, 10 and 20, launches
                   equal the derived counts; losses, eval PSNR, seconds a
                   step, overflow counters and peak memory printed.
+  20. the recipes as configured
+               the train step of each training config
+               (configs/diffusionGS_rel.yaml, _rel_512, _scene, _scene_512)
+               at its own batch_size (each fits 80 GB: --recipe-memory),
+               training resolution and views (4 + 6 rendered objects, 4 + 3 + 4
+               = 7 rendered scene frames), with
+               system.use_lpips=true system.allow_random_lpips=true (the
+               random-frozen VGG16 of lpips_init_params): from step 151
+               (lambda_lpips 0.5 for objects, 0.1 for scenes), 1 warm-up
+               + 3 timed steps + 1 profiled (device ms); s/step, device
+               ms, the idle share, the "lpips" range's device ms (CUDA
+               events at its edges, the timed steps' median), peak
+               memory, b configured beside b run; launches
+               equal 48 #1s / 24 #3 / b·views #2 / b·views #4 a step; the
+               LPIPS term alone (forward + the render's backward) timed
+               by CUDA events on the step's shapes.  On the object
+               recipe's batch: LPIPS on the card against the CPU on 8
+               render / target pairs (value rtol 2e-4, gradient with
+               respect to the render rel-max 1e-3, both devices on the
+               card's ReLU / max-pool decisions, lpips_routed: a flat
+               render ties every pool window, where the gradient is not
+               unique); the DiT's gradients at
+               step 151 with lambda_lpips 0.5 against 0.0 (must differ by
+               more than two identical steps do; whether those two are bit
+               for bit is printed); the LPIPS term timed again with
+               cudnn.allow_tf32 switched on, then restored, beside its
+               deviation from the f32 value (a number, not a setting).
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -353,8 +391,10 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1142,16 +1182,17 @@ def train_batch(torch, dev, b: int, res: int, sup_views: int = N_VIEWS):
 
 def phase_train(torch, dev, label="8 train path", config=CONFIG,
                 overrides=(), profile=True, loaded=None,
-                sup_views: int = N_VIEWS) -> dict:
+                sup_views: int = N_VIEWS, after=None) -> dict:
     """The train step of `config` (+ dotlist `overrides`) on a batch of the
     config's per-device batch_size objects at its training_res: 1 warm-up
     and TRAIN_STEPS timed steps
     from step 151, launches held against the derived counts, and (with
     `profile`) one more step under torch.profiler.  `loaded`: tensors by
-    name that the config's weight bootstraps must have loaded.  The EMA
-    must move on every watched tensor that got a gradient (a tensor moved
-    only by weight decay moves by about an ulp, which the EMA's 1e-4 step
-    rounds away)."""
+    name that the config's weight bootstraps must have loaded.  The EMA must move on
+    every watched tensor that got a gradient (a tensor moved only by
+    weight decay moves by about an ulp, which the EMA's 1e-4 step rounds
+    away).  `after(system, batch)`, when given, runs last, its result
+    under "after"."""
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
     from open_diffusiongs_tpu_torch.parallel.train_step import (
         init_train_state, make_optimizer, make_train_step)
@@ -1232,7 +1273,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     head_grad = {k: float(params[k].grad.norm()) for k in watch[1:]}
     secs = sum(s["seconds"] for s in steps) / len(steps)
     out = {"steps": steps, "seconds_per_step": secs,
-           "samples_per_second": batch_size / secs,
+           "batch_size": batch_size, "samples_per_second": batch_size / secs,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
            "launches": launches, "expected_launches": want,
            "overflow_gaussians": int(m["overflow_gaussians"]),
@@ -1251,8 +1292,9 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                     f"{res}^2, from step {TRAIN_START_STEP}",
            "config": os.path.relpath(config, ROOT),
            "overrides": list(overrides), "card": card_line()}
+    t_profile = time.perf_counter()
     if profile:
-        # device time of one more step, and the blend kernels' part of it
+        # device time of one more step, and the kernels' parts of it
         by_kernel = device_ms_by_kernel(
             torch, lambda: train_step(state, batch), iters=1, warm_up=False)
         out.update(device_ms_per_step=sum(by_kernel.values()),
@@ -1266,6 +1308,11 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                    attention_bwd_device_ms_per_step=kernel_ms(
                        by_kernel, "flash_full_bwd" if route == "general"
                        else "flash_bwd"))
+    if after is not None:
+        t_after = time.perf_counter()
+        out["after"] = after(system, batch)
+        out.update(profile_seconds=t_after - t_profile,
+                   after_seconds=time.perf_counter() - t_after)
     print(f"[{label}] {json.dumps(out)}", flush=True)
     if not all(torch.isfinite(torch.tensor(s["loss"])) for s in steps):
         raise AssertionError("non-finite training loss")
@@ -2684,6 +2731,76 @@ def phase_scene_eval(torch, dev, tmp: str) -> dict:
     if not (np.isfinite(metrics["psnr"]) and np.isfinite(metrics["ssim"])
             and metrics["num_scenes"] == b):
         raise AssertionError(f"metric CLI: {metrics}")
+    dump = os.path.join(out_dir, sorted(f for f in files
+                                        if f.endswith(".npz"))[0])
+    out["lpips"] = scene_eval_lpips(torch, dev, tmp, out_dir, dump, metrics)
+    return out
+
+
+def synthetic_lpips_npz(torch, tmp: str) -> str:
+    """The port's tools/convert_lpips_weights.py on seeded full-spec
+    torchvision-VGG16 and lpips-head state dicts written with torch.save;
+    the NPZ's path."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.tools import convert_lpips_weights as clp
+    rng = np.random.default_rng(2024)
+    vgg, lin, cin = {}, {}, 3
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    for si, idxs in enumerate(clp.STAGE_CONV_IDXS):
+        cout = clp.VGG_STAGES[si][0]
+        for i in idxs:
+            vgg[f"features.{i}.weight"] = t(rng.normal(
+                0, np.sqrt(2.0 / (9 * cin)), (cout, cin, 3, 3)))
+            vgg[f"features.{i}.bias"] = t(rng.normal(0, 0.05, (cout,)))
+            cin = cout
+        lin[f"lin{si}.model.1.weight"] = t(np.abs(rng.normal(
+            0, 0.05, (1, cout, 1, 1))))
+    vgg_path, lin_path, npz = (os.path.join(tmp, n) for n in
+                               ("vgg16.pth", "vgg.pth", "lpips_vgg.npz"))
+    torch.save(vgg, vgg_path)
+    torch.save(lin, lin_path)
+    clp.main(["--vgg16", vgg_path, "--lin", lin_path, "--out", npz])
+    return npz
+
+
+def scene_eval_lpips(torch, dev, tmp: str, out_dir: str, dump: str,
+                     metrics: dict) -> dict:
+    """14's LPIPS: the metric CLI with --lpips-weights on the converter's
+    NPZ, and one scene's LPIPS on the card against the CPU."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch import eval_scene_result
+    from open_diffusiongs_tpu_torch.systems import losses
+    npz = synthetic_lpips_npz(torch, tmp)
+    t0 = time.perf_counter()
+    with_lpips = eval_scene_result.main(["--result_dir", out_dir,
+                                         "--lpips-weights", npz])
+    cli_s = time.perf_counter() - t0
+    render, gt = (torch.from_numpy(a) for a in
+                  eval_scene_result.load_result(dump))
+    with torch.no_grad():
+        card = losses.compute_metrics(
+            gt.to(dev), render.to(dev),
+            losses.lpips_init_params(npz, device=dev))["lpips"].cpu()
+        cpu = losses.compute_metrics(
+            gt, render, losses.lpips_init_params(npz))["lpips"]
+    rel = float(((card - cpu).abs() / cpu.abs()).max())
+    out = {"metric_cli": with_lpips, "metric_cli_seconds": cli_s,
+           "scene": os.path.basename(dump), "card": card.tolist(),
+           "cpu": cpu.tolist(), "max_rel_err": rel}
+    print(f"[14 scene eval lpips] {json.dumps(out)}", flush=True)
+    if not np.isfinite(with_lpips.get("lpips", np.nan)):
+        raise AssertionError(f"metric CLI with LPIPS: {with_lpips}")
+    if (with_lpips["psnr"], with_lpips["ssim"]) != (metrics["psnr"],
+                                                    metrics["ssim"]):
+        raise AssertionError("metric CLI: PSNR / SSIM moved with LPIPS on")
+    if not rel <= LPIPS_RTOL:
+        raise AssertionError(f"14: scene LPIPS card vs CPU {rel:.3g} > "
+                             f"{LPIPS_RTOL}")
     return out
 
 
@@ -4584,6 +4701,426 @@ def phase_synthetic(torch, dev, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20. The recipes as configured: LPIPS on
+# ---------------------------------------------------------------------------
+
+LPIPS_ON = ("system.use_lpips=true", "system.allow_random_lpips=true")
+# the training configs, each run at its own batch_size: every one fits
+# the card's 80 GB (`python3 chip_smoke.py --recipe-memory`, PERF.md §5)
+RECIPES = ("diffusionGS_rel.yaml", "diffusionGS_rel_512.yaml",
+           "diffusionGS_scene.yaml", "diffusionGS_scene_512.yaml")
+CHECK_RECIPE = "diffusionGS_rel.yaml"   # the LPIPS checks' batch
+LPIPS_PAIRS = 8
+LPIPS_RTOL = 2e-4           # the value, card against CPU
+LPIPS_GRAD_REL = 1e-3       # d lpips / d render, rel-max, card against CPU
+LAMBDA_OVER_REPEAT = 10.0   # the lambda's gradient change over two equal steps'
+LPIPS_ITERS = 2
+MEMORY_SIZES = (1, 2, 4, 8, 16)   # --recipe-memory: b tried below the config's
+
+
+def recipe_views(cfg) -> tuple:
+    """(input views, rendered views) of a training config's data block:
+    gen_views + sel_views (objects), sel_views + 1 of sel_views +
+    sel_views_train (scenes)."""
+    d = cfg.data
+    if "gen_views" in d:
+        return int(d["gen_views"]), int(d["gen_views"]) + int(d["sel_views"])
+    return (int(d["sel_views"]) + 1,
+            int(d["sel_views"]) + int(d["sel_views_train"]))
+
+
+def lpips_term(torch, params, render, target):
+    """compute_losses's LPIPS term on [n, 3, h, w] renders in [0, 1]
+    (resize to 256², scale to [-1, 1], VGG on both): the n values and the
+    gradient of their sum with respect to `render`."""
+    from open_diffusiongs_tpu_torch.systems import losses
+    r = render.detach().requires_grad_()
+
+    def scaled(x):
+        return (losses.resize_bilinear_256(x) * 2.0 - 1.0).contiguous()
+
+    value = losses.lpips(params, scaled(r), scaled(target))
+    (grad,) = torch.autograd.grad(value.sum(), r)
+    return value.detach(), grad
+
+
+def lpips_routed(torch, params, x, y, routes=None):
+    """losses.lpips(params, x, y) with x's ReLU masks and max-pool
+    indices recorded (`routes` None) or replayed from `routes`: where a
+    pool window or a ReLU sits at an exact tie (the flat background of a
+    random-init render ties everywhere) both devices then take the same
+    subgradient.  Returns (values [n], routes)."""
+    from open_diffusiongs_tpu_torch.systems import losses
+    F = torch.nn.functional
+    record = routes is None
+    routes = [] if record else list(routes)
+    shift = torch.from_numpy(losses._LPIPS_SHIFT).to(x.device)
+    scale = torch.from_numpy(losses._LPIPS_SCALE).to(x.device)
+    h = (x - shift.reshape(1, 3, 1, 1)) / scale.reshape(1, 3, 1, 1)
+    feats, taken = [], iter(routes)
+    for si, (_, n_convs) in enumerate(losses.VGG_STAGES):
+        for ci in range(n_convs):
+            p = params[f"vgg/{si}_{ci}"]
+            pre = F.conv2d(h, p["kernel"], p["bias"], padding=1)
+            mask = (pre > 0) if record else next(taken)
+            h = pre * mask
+            if record:
+                routes.append(mask)
+        feats.append(h)
+        if si < len(losses.VGG_STAGES) - 1:
+            if record:
+                h, idx = F.max_pool2d(h, 2, 2, return_indices=True)
+                routes.append(idx)
+            else:
+                idx = next(taken)
+                h = h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+    with torch.no_grad():
+        target = losses._vgg_features(params, y)
+    return losses.lpips_heads(params, feats, target), routes
+
+
+def lpips_term_ms(torch, params, render, target) -> float:
+    """Device ms of lpips_term (forward and the render's backward)."""
+    return cuda_ms(lambda: lpips_term(torch, params, render, target),
+                   LPIPS_ITERS)
+
+
+def step_renders(torch, system, fn) -> tuple:
+    """fn()'s result and the renders its train_loss handed
+    compute_losses, detached."""
+    from open_diffusiongs_tpu_torch.systems import losses
+    seen, compute = [], losses.compute_losses
+
+    def recording(rendering, *args, **kw):
+        seen.append(rendering.detach())
+        return compute(rendering, *args, **kw)
+
+    losses.compute_losses = recording
+    try:
+        out = fn()
+    finally:
+        losses.compute_losses = compute
+    return out, seen[0]
+
+
+class LpipsSpans:
+    """CUDA events at the edges of every losses.lpips call while open:
+    the device span of the loss's `lpips` range (the term's forward
+    kernels, on one stream) without a profiler's host cost."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def __enter__(self):
+        from open_diffusiongs_tpu_torch.systems import losses
+        self.losses, self.lpips = losses, losses.lpips
+
+        def timed(*args, **kw):
+            edges = [self.torch.cuda.Event(enable_timing=True)
+                     for _ in range(2)]
+            edges[0].record()
+            out = self.lpips(*args, **kw)
+            edges[1].record()
+            self.events.append(edges)
+            return out
+
+        losses.lpips = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.losses.lpips = self.lpips
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def lpips_checks(torch, dev, system, batch) -> dict:
+    """20 on the object recipe's batch: the DiT's gradients at step 151
+    with the config's lambda_lpips (twice) and with 0.0 on the same noise
+    and t; LPIPS on the card against the CPU on LPIPS_PAIRS of that
+    step's render / target pairs; the term with TF32 on, measured only."""
+    import dataclasses
+
+    from open_diffusiongs_tpu_torch.systems import losses
+    from open_diffusiongs_tpu_torch.utils.schedules import C
+    shape = batch["rgbs_input"].shape
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = torch.randn(shape, generator=gen, device=dev)
+    t = torch.randint(0, system.cfg.num_train_timesteps, shape[:1],
+                      generator=gen, device=dev)
+    params = dict(system.model.named_parameters())
+    dit = [n for n in params if n.startswith("transformer.")]
+    lam = system.cfg.lambda_lpips
+
+    def dit_grads(lambda_lpips):
+        saved = system.cfg
+        system.cfg = dataclasses.replace(saved, lambda_lpips=lambda_lpips)
+        try:
+            system.model.zero_grad(set_to_none=True)
+            loss, m = system.train_loss(batch, TRAIN_START_STEP, noise=noise,
+                                        t=t)
+            loss.backward()
+        finally:
+            system.cfg = saved
+        return float(m["loss_lpips"]), {n: params[n].grad.clone()
+                                        for n in dit}
+
+    (lp, on), render = step_renders(torch, system, lambda: dit_grads(lam))
+    _, again = dit_grads(lam)
+    _, off = dit_grads(0.0)
+    system.model.zero_grad(set_to_none=True)
+
+    def max_diff(a, b):
+        return max(float((a[n] - b[n]).abs().max()) for n in dit)
+
+    grads = {"lambda_lpips_at_step": C(lam, TRAIN_START_STEP),
+             "loss_lpips": lp,
+             "dit_grad_max_abs": max(float(on[n].abs().max()) for n in dit),
+             "dit_grad_max_diff_lambda_0": max_diff(on, off),
+             "dit_grad_max_diff_repeat": max_diff(on, again),
+             "repeat_bit_identical": all(torch.equal(on[n], again[n])
+                                         for n in dit)}
+    del on, again, off
+
+    # card against CPU, the same seed-0 VGG
+    n, h, w = shape[0] * render.shape[1], render.shape[-2], render.shape[-1]
+    x = render.reshape(n, 3, h, w)
+    y = batch["rgbs"].float().reshape(n, 3, h, w)
+    cpu_params = losses.lpips_init_params(None, device="cpu")
+    same_vgg = all(torch.equal(system.lpips_params[k]["kernel"].cpu(),
+                               cpu_params[k]["kernel"])
+                   for k in cpu_params if k.startswith("vgg/"))
+    xs, ys = x[:LPIPS_PAIRS], y[:LPIPS_PAIRS]
+    card_v, card_g = lpips_term(torch, system.lpips_params, xs, ys)
+
+    def rel_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # value and gradient on the card's ReLU / max-pool decisions, on both
+    # devices; the routed value is the plain one (a tie's two sides are
+    # equal)
+    def routed(params, xi, yi, routes=None):
+        r = xi.detach().requires_grad_()
+
+        def scaled(t):
+            return (losses.resize_bilinear_256(t) * 2.0 - 1.0).contiguous()
+
+        value, routes = lpips_routed(torch, params, scaled(r), scaled(yi),
+                                     routes)
+        (g,) = torch.autograd.grad(value.sum(), r)
+        return value.detach(), g, routes
+
+    t_cpu = time.perf_counter()
+    card_rv, card_rg, routes = routed(system.lpips_params, xs, ys)
+    cpu_v, cpu_g, _ = routed(cpu_params, xs.cpu(), ys.cpu(),
+                             [r.cpu() for r in routes])
+    cpu_s = time.perf_counter() - t_cpu
+    del routes
+    value_rel = float(((card_v.cpu() - cpu_v).abs() / cpu_v.abs()).max())
+    grad_rel = rel_max(card_rg.cpu(), cpu_g)
+    routed_vs_plain = max(rel_max(card_rg, card_g),
+                          float(((card_rv - card_v).abs()
+                                 / card_v.abs()).max()))
+
+    # TF32 in cuDNN's convolutions, measured and restored
+    f32_ms = lpips_term_ms(torch, system.lpips_params, x, y)
+    f32_v = lpips_term(torch, system.lpips_params, x, y)[0]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_ms = lpips_term_ms(torch, system.lpips_params, x, y)
+        tf32_v = lpips_term(torch, system.lpips_params, x, y)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    out = {"gradients_step_151": grads,
+           "card_vs_cpu": {"pairs": LPIPS_PAIRS, "same_vgg": same_vgg,
+                           "value_max_rel_err": value_rel,
+                           "grad_rel_max_err_card_routing": grad_rel,
+                           "card_routed_vs_plain": routed_vs_plain,
+                           "values": card_v.tolist(),
+                           "routed_passes_seconds": cpu_s},
+           "tf32": {"images": n, "f32_ms": f32_ms, "tf32_ms": tf32_ms,
+                    "value_max_rel_dev": float(
+                        ((tf32_v - f32_v).abs() / f32_v.abs()).max()),
+                    "mean_rel_dev": abs(float(tf32_v.mean() / f32_v.mean())
+                                        - 1.0),
+                    "restored": torch.backends.cudnn.allow_tf32 is before}}
+    if not same_vgg:
+        raise AssertionError("20: the card's VGG is not the CPU's draws")
+    if not value_rel <= LPIPS_RTOL:
+        raise AssertionError(f"20: LPIPS card vs CPU {value_rel:.3g} > "
+                             f"{LPIPS_RTOL}")
+    if not max(grad_rel, routed_vs_plain) <= LPIPS_GRAD_REL:
+        raise AssertionError(f"20: LPIPS gradient card vs CPU {grad_rel:.3g}"
+                             f" (the routed card value / gradient vs the "
+                             f"plain ones {routed_vs_plain:.3g}) > "
+                             f"{LPIPS_GRAD_REL}")
+    if not (math.isfinite(lp) and lp > 0):
+        raise AssertionError(f"20: loss_lpips {lp}")
+    if not (grads["dit_grad_max_diff_lambda_0"] > 0 and
+            grads["dit_grad_max_diff_lambda_0"]
+            > LAMBDA_OVER_REPEAT * grads["dit_grad_max_diff_repeat"]):
+        raise AssertionError(f"20: lambda_lpips does not reach the DiT: "
+                             f"{grads}")
+    return out
+
+
+def recipe_after(torch, dev, checks: bool, system, batch) -> dict:
+    """phase_train's `after` in phase 20: the LPIPS term alone on the
+    step's shapes (the supervision views, each against its neighbour),
+    and on the object recipe lpips_checks."""
+    rgbs = batch["rgbs"].float()
+    x = rgbs.reshape(-1, *rgbs.shape[2:])
+    out = {"lpips_images": x.shape[0],
+           "lpips_fwd_bwd_ms": lpips_term_ms(torch, system.lpips_params, x,
+                                             x.roll(1, 0))}
+    if checks:
+        out.update(lpips_checks(torch, dev, system, batch))
+    return out
+
+
+def phase_recipes(torch, dev) -> dict:
+    """20: each training config as configured, LPIPS on (module
+    docstring)."""
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    out = {"allocated_at_start_bytes": torch.cuda.memory_allocated(dev),
+           "recipes": {}, "card": card_line()}
+    for name in RECIPES:
+        config = os.path.join(ROOT, "configs", name)
+        cfg = load_config(config, makedirs=False)
+        n_in, views = recipe_views(cfg)
+        if n_in != N_VIEWS:
+            raise AssertionError(f"20 {name}: {n_in} input views")
+        t0 = time.perf_counter()
+        with LpipsSpans(torch) as spans:
+            res = phase_train(
+                torch, dev, f"20 {name}", config, overrides=LPIPS_ON,
+                sup_views=views,
+                after=lambda system, batch, c=(name == CHECK_RECIPE):
+                    recipe_after(torch, dev, c, system, batch))
+        # the loss's lpips calls: the warm-up step's, then the timed ones
+        range_ms = spans.ms()[1:1 + TRAIN_STEPS]
+        secs, device_ms = res["seconds_per_step"], res["device_ms_per_step"]
+        out["recipes"][name] = {
+            "batch_configured": int(cfg.data["batch_size"]),
+            "batch_run": res["batch_size"],
+            "resolution": int(cfg.data["training_res"][0]),
+            "views": f"{n_in} in, {views} rendered",
+            "seconds_per_step": secs, "device_ms_per_step": device_ms,
+            "device_idle_share": 1.0 - device_ms / 1e3 / secs,
+            "lpips_range_device_ms": statistics.median(range_ms),
+            "lpips_fwd_bwd_ms": res["after"]["lpips_fwd_bwd_ms"],
+            "max_memory_allocated_bytes": res["max_memory_allocated_bytes"],
+            "loss_terms": res["loss_terms"], "launches": res["launches"],
+            "host_seconds": time.perf_counter() - t0,
+            "profile_seconds": res["profile_seconds"],
+            "after_seconds": res["after_seconds"]}
+        if name == CHECK_RECIPE:
+            out["checks"] = {k: res["after"][k] for k in
+                             ("gradients_step_151", "card_vs_cpu", "tf32")}
+        del res
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k]
+                              for r in out["recipes"].values())
+                       for k in next(iter(out["recipes"].values()))
+                       ["launches"]}
+    print(f"[20 recipes] {json.dumps(out)}", flush=True)
+    for name, r in out["recipes"].items():
+        if not r["loss_terms"]["loss_lpips"] > 0:
+            raise AssertionError(f"20 {name}: loss_lpips "
+                                 f"{r['loss_terms']['loss_lpips']}")
+    return out
+
+
+def live_bytes_by_module(snapshot: dict) -> dict:
+    """Live bytes of a torch.cuda.memory snapshot by the innermost frame
+    of this package that allocated them ("before recording" where no
+    frame was recorded: the params, moments and EMA)."""
+    by = {}
+    for seg in snapshot["segments"]:
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            where = "before recording"
+            for fr in blk.get("frames") or []:
+                path = fr.get("filename", "")
+                if "open_diffusiongs_tpu_torch" in path:
+                    where = path.split("open_diffusiongs_tpu_torch/")[-1]
+                    break
+                where = "outside the package"
+            by[where] = by.get(where, 0) + blk["size"]
+    return dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def recipe_memory(torch, dev, name: str) -> dict:
+    """The LPIPS-on train step's peak memory for configs/<name> at b = 1,
+    2, 4, ... up to the config's batch_size (a step, then one from a
+    reset peak), stopping at the first b that does not fit; and at b = 1
+    the live memory at the end of the forward by module.  A measurement
+    behind RECIPES (`--recipe-memory`), not a phase: it
+    catches the out-of-memory error that ends its sweep."""
+    from open_diffusiongs_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer, make_train_step)
+    from open_diffusiongs_tpu_torch.systems.builder import (
+        build_optimizer_config, build_system)
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    config = os.path.join(ROOT, "configs", name)
+    cfg = load_config(config, cli_args=list(LPIPS_ON), makedirs=False)
+    _, views = recipe_views(cfg)
+    b_cfg, res = int(cfg.data["batch_size"]), int(cfg.data["training_res"][0])
+    system = build_system(cfg.system_type, cfg.system, device=dev)
+    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    params = dict(system.model.named_parameters())
+    optimizer = make_optimizer(build_optimizer_config(cfg.system,
+                                                      cfg.trainer),
+                               params.items())
+    state = init_train_state(params, optimizer, ema_decay=0.9999)
+    state.step = TRAIN_START_STEP
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step = make_train_step(
+        lambda batch, s: system.train_loss(batch, s, generator=gen),
+        optimizer, ema_decay=0.9999)
+    out = {"config": name, "batch_configured": b_cfg, "views": views,
+           "resolution": res, "state_bytes": torch.cuda.memory_allocated(dev),
+           "peak_bytes": {}, "card": card_line()}
+    batch = train_batch(torch, dev, 1, res, views)
+    torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                             stacks="python")
+    try:
+        loss, _ = system.train_loss(batch, TRAIN_START_STEP, generator=gen)
+        torch.cuda.synchronize()
+        out["forward_end_bytes_b1"] = torch.cuda.memory_allocated(dev)
+        out["forward_end_by_module_b1"] = live_bytes_by_module(
+            torch.cuda.memory._snapshot())
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del loss
+    for b in [s for s in MEMORY_SIZES if s < b_cfg] + [b_cfg]:
+        batch = train_batch(torch, dev, b, res, views)
+        try:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            out["peak_bytes"][b] = torch.cuda.max_memory_allocated(dev)
+            out.setdefault("seconds_per_step", {})[b] = \
+                time.perf_counter() - t0
+        except torch.OutOfMemoryError as e:
+            out["out_of_memory_at"] = b
+            out["out_of_memory"] = str(e).splitlines()[0]
+            break
+        finally:
+            del batch
+            optimizer.zero_grad()
+            torch.cuda.empty_cache()
+    print(f"[recipe memory] {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4595,6 +5132,15 @@ def main() -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     import open_diffusiongs_tpu_torch as port
     dev = port.require_cuda()
+    if sys.argv[1:] == ["--recipe-memory"]:
+        # whether phase 20 can run each recipe at its own b; no phases
+        phase_device(torch)
+        phase_build()
+        for name in RECIPES:
+            recipe_memory(torch, dev, name)
+            torch.cuda.empty_cache()
+        print(card_line())
+        return 0
 
     seconds = {}        # host seconds of each phase, printed at the end
 
@@ -4680,6 +5226,8 @@ def main() -> int:
     # 19's trees and trial dirs: deleted on the way out
     with tempfile.TemporaryDirectory() as tmp:
         synth = timed("19 synthetic trees", phase_synthetic, torch, dev, tmp)
+    torch.cuda.empty_cache()
+    recipes = timed("20 recipes as configured", phase_recipes, torch, dev)
     ring = {k: parallel["sp2"][k] for k in ("step_launches",
                                             "sampler_launches")}
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
@@ -4689,7 +5237,7 @@ def main() -> int:
         "card": card_line()}), flush=True)
 
     leaked = sorted(m for m in sys.modules
-                    if m in ("jax", "flax", "optax", "orbax")
+                    if m in ("jax", "flax", "optax", "orbax", "lpips")
                     or m.startswith(("jax.", "open_diffusiongs_tpu."))
                     or m == "open_diffusiongs_tpu")
     if leaked:
@@ -4718,6 +5266,11 @@ def main() -> int:
         the card, 19b) and the two 20-step `launch --train` runs."""
         return {"launches_synthetic": synth["launches"][counter]}
 
+    def recipe_launches(counter):
+        """A training row's launches in phase 20: the four recipes' 3
+        timed steps each."""
+        return {"launches_recipes": recipes["launches"][counter]}
+
     src = "open_diffusiongs_tpu_torch/csrc/"
     density = serving["density"][1]     # phase 5's asset at 256
     t64, t48 = (general_kernels["times"][k] for k in ("h16_d64", "h16_d48"))
@@ -4745,7 +5298,8 @@ def main() -> int:
          "launches_512": sample_512["init"]["launches"]["blend"],
          **cli_launches("blend_kernel.LAUNCHES"),
          **par18_launches("blend_kernel.LAUNCHES", "blend"),
-         **synth_launches("blend_kernel.LAUNCHES")},
+         **synth_launches("blend_kernel.LAUNCHES"),
+         **recipe_launches("blend_fwd")},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -4766,7 +5320,8 @@ def main() -> int:
          "ms_ring_step_L16896_sp2":
              split["ring_step_L16896_sp2"]["fwd_stats_ms"],
          **par18_launches("attention.LAUNCHES_STATS"),
-         **synth_launches("attention.LAUNCHES_STATS")},
+         **synth_launches("attention.LAUNCHES_STATS"),
+         **recipe_launches("attention_fwd_lse")},
         {"name": "flash_mha_packed_bwd", "route": "cuda",
          "source": src + "flash_attn_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:435",
@@ -4782,7 +5337,8 @@ def main() -> int:
          "split_extent_max_abs_err": split["max_abs_err_bwd"],
          "ms_ring_step_L16896_sp2": split["ring_step_L16896_sp2"]["bwd_ms"],
          **par18_launches("attention.LAUNCHES_BWD"),
-         **synth_launches("attention.LAUNCHES_BWD")},
+         **synth_launches("attention.LAUNCHES_BWD"),
+         **recipe_launches("attention_bwd")},
         {"name": "blend_bwd", "route": "cuda",
          "source": src + "blend_bwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/blend_kernel.py:117",
@@ -4794,7 +5350,8 @@ def main() -> int:
          "launches_512": train_512["launches"]["blend_bwd"],
          **cli_launches("blend_kernel.LAUNCHES_BWD"),
          **par18_launches("blend_kernel.LAUNCHES_BWD"),
-         **synth_launches("blend_kernel.LAUNCHES_BWD")},
+         **synth_launches("blend_kernel.LAUNCHES_BWD"),
+         **recipe_launches("blend_bwd")},
         {"name": "flash_full_mha", "route": "cuda",
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:44",

@@ -136,7 +136,7 @@ def build_system(system_type: str, system_cfg: Dict[str, Any],
         if lam in loss:
             v = loss[lam]
             kwargs[lam] = tuple(v) if isinstance(v, list) else v
-    for k in ("use_lpips", "lpips_weights"):
+    for k in ("use_lpips", "lpips_weights", "allow_random_lpips"):
         if k in cfg:
             kwargs[k] = cfg[k]
     if "bg_color" in cfg:

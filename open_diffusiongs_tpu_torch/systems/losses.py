@@ -6,8 +6,12 @@ utils/losses.py LossComputer :261-369 and MetricComputer :373-473):
     sigma 1.5, valid convolution, K1 0.01 / K2 0.03), or with skimage's
     sample covariance for the eval metric;
   * LPIPS-VGG16 (5 stages, unit-normalized taps, 1x1 linear heads, spatial
-    mean, sum) with weights from the NPZ of tools/convert_lpips_weights.py
-    or seeded random weights flagged `pretrained=False`;
+    mean, sum) with weights from the NPZ that
+    open_diffusiongs_tpu_torch/tools/convert_lpips_weights.py (or the root
+    tools/convert_lpips_weights.py) writes,
+    or seeded random weights flagged `pretrained=False`; f32, with TF32
+    off as the package sets it at import (JAX's semantics); its VGG
+    tensors never require grad and belong to no parameter group;
   * per-element MSE / PSNR, the points-distance regularizer and the masked
     xyz MSE.
 
@@ -86,8 +90,9 @@ def lpips_init_params(npz_path: Optional[str] = None, seed: int = 0,
                       device: torch.device | str = "cpu") -> Dict[str, Any]:
     """LPIPS parameters, the same draws as the JAX package's.
 
-    npz keys: `vgg/{stage}_{conv}/kernel|bias` ([kh, kw, cin, cout] HWIO /
-    [cout]) and `lin/{stage}/kernel` ([cin]).  Conv kernels are stored as
+    npz keys: `vgg/{stage}_{conv}/kernel|bias` ([3, 3, cin, cout] HWIO /
+    [cout]) and `lin/{stage}/kernel` ([cout]); a missing key raises
+    KeyError, a misshapen array ValueError.  Conv kernels are stored as
     torch OIHW here.  Without an NPZ the weights come from
     np.random.default_rng(seed) and `pretrained` is False."""
     params: Dict[str, Any] = {"pretrained": npz_path is not None}
@@ -95,7 +100,10 @@ def lpips_init_params(npz_path: Optional[str] = None, seed: int = 0,
     rng = np.random.default_rng(seed)
     cin = 3
 
-    def t(a):
+    def t(a, key, shape):
+        if a.shape != shape:
+            raise ValueError(f"LPIPS NPZ {npz_path}: {key} has shape "
+                             f"{a.shape}, want {shape}")
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     for si, (cout, n_convs) in enumerate(VGG_STAGES):
@@ -107,14 +115,15 @@ def lpips_init_params(npz_path: Optional[str] = None, seed: int = 0,
                 k = rng.normal(0, np.sqrt(2.0 / (9 * cin)),
                                (3, 3, cin, cout)).astype(np.float32)
                 b = np.zeros((cout,), np.float32)
-            params[key] = {"kernel": t(np.transpose(k, (3, 2, 0, 1))),
-                           "bias": t(b)}
+            k = t(k, key + "/kernel", (3, 3, cin, cout))
+            params[key] = {"kernel": k.permute(3, 2, 0, 1).contiguous(),
+                           "bias": t(b, key + "/bias", (cout,))}
             cin = cout
         if data is not None:
             lin = data[f"lin/{si}/kernel"]
         else:
             lin = np.abs(rng.normal(0, 0.01, (cout,))).astype(np.float32)
-        params[f"lin/{si}"] = t(lin)
+        params[f"lin/{si}"] = t(lin, f"lin/{si}/kernel", (cout,))
     return params
 
 
@@ -137,10 +146,21 @@ def _vgg_features(params: Dict[str, Any], x: torch.Tensor
 
 def lpips(params: Dict[str, Any], x: torch.Tensor, y: torch.Tensor
           ) -> torch.Tensor:
-    """Perceptual distance.  x, y [n, 3, h, w] in [-1, 1] -> [n]."""
+    """Perceptual distance.  x, y [n, 3, h, w] in [-1, 1] -> [n].  The VGG
+    tensors are constants (no grad); a `y` that needs no gradient (the
+    target) goes through VGG without building a graph."""
+    fx = _vgg_features(params, x)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and y.requires_grad):
+        fy = _vgg_features(params, y)
+    return lpips_heads(params, fx, fy)
+
+
+def lpips_heads(params: Dict[str, Any], fx: List[torch.Tensor],
+                fy: List[torch.Tensor]) -> torch.Tensor:
+    """The distance of two images' 5 VGG taps -> [n]: unit-normalized,
+    squared difference, 1x1 linear heads, spatial mean, summed."""
     total = 0.0
-    for si, (a, b) in enumerate(zip(_vgg_features(params, x),
-                                    _vgg_features(params, y))):
+    for si, (a, b) in enumerate(zip(fx, fy)):
         # lpips.normalize_tensor: x / (||x||_c + eps), eps outside the sqrt
         a = a / (torch.sqrt(torch.sum(a * a, dim=1, keepdim=True)) + 1e-10)
         b = b / (torch.sqrt(torch.sum(b * b, dim=1, keepdim=True)) + 1e-10)
@@ -203,9 +223,15 @@ def compute_losses(rendering: torch.Tensor, target: torch.Tensor,
         xyz = zero
 
     if use_lpips and lpips_params is not None:
-        r = resize_bilinear_256(rend) if lpips_resize else rend
-        t_ = resize_bilinear_256(targ) if lpips_resize else targ
-        lp = lpips(lpips_params, r * 2.0 - 1.0, t_ * 2.0 - 1.0).mean()
+        # a profiler range, beside the sampler's "denoiser" / "render"; the
+        # render is a [b, v, h, w, 3] buffer viewed channels-first, so the
+        # inputs are made contiguous NCHW once and both VGG passes run
+        # the same convolutions
+        with torch.profiler.record_function("lpips"):
+            r = resize_bilinear_256(rend) if lpips_resize else rend
+            t_ = resize_bilinear_256(targ) if lpips_resize else targ
+            lp = lpips(lpips_params, (r * 2.0 - 1.0).contiguous(),
+                       (t_ * 2.0 - 1.0).contiguous()).mean()
     else:
         lp = zero
 

@@ -6,17 +6,23 @@ function that no test calls (the grabcut branch of
 `pipeline.remove_background` imported the JAX package's matting module
 that way).  This file parses every `.py` of `open_diffusiongs_tpu_torch/`
 with `ast` and fails on any `import` or `from ... import` of a forbidden
-package, module-level or function-local.
+package, module-level or function-local: the JAX package, JAX and its
+libraries, and the `lpips` package (the port converts its weights itself,
+`tools/convert_lpips_weights.py`).  The two weight converters also run as
+`python -m` entry points.
 """
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "open_diffusiongs_tpu_torch"
-FORBIDDEN = ("open_diffusiongs_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+FORBIDDEN = ("open_diffusiongs_tpu", "jax", "jaxlib", "flax", "optax", "orbax",
+             "lpips")
 
 
 def forbidden_imports(source: str) -> list:
@@ -58,3 +64,16 @@ def test_module_imports_no_jax_side(path):
 ])
 def test_scanner_finds_imports_at_any_depth(snippet, mods):
     assert [m for _, m in forbidden_imports(snippet)] == mods
+
+
+@pytest.mark.parametrize("tool", ["convert_lpips_weights",
+                                  "convert_u2net_weights"])
+def test_weight_converters_run_as_modules(tool):
+    path = f"open_diffusiongs_tpu_torch/tools/{tool}.py"
+    assert path in _port_files()
+    assert forbidden_imports((ROOT / path).read_text()) == []
+    out = subprocess.run(
+        [sys.executable, "-m", f"open_diffusiongs_tpu_torch.tools.{tool}",
+         "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--out" in out.stdout
