@@ -6,7 +6,9 @@ training with resume and export, scene eval with its metric CLI) once on
 one NVIDIA GPU, its data, ZeRO-1, sequence, tensor and pipeline
 parallelism in two ranks that share the card, the synthetic
 G-Objaverse and RE10K generators with a short training run on each tree,
-and the four training recipes as their configs define them, LPIPS on.
+the four training recipes as their configs define them, LPIPS on, and the
+wide-head DiT on the splash route with the auxiliary modules (knn, the
+DDIM / RF schedulers, fisheye, the turntable saver).
 
   python3 chip_smoke.py
   python3 chip_smoke.py --recipe-memory
@@ -147,7 +149,8 @@ Phases, one summary line each (every failure raises and exits non-zero):
                512^2 (smooth shapes on white; PNG + json + zip `_nd.exr`,
                written with the port's utils/exr.py) in a temporary
                directory; configs/diffusionGS_rel.yaml at its own b = 4 and
-               num_workers 4 with the overrides it prints (paths,
+               num_workers 4 and 12 of its 24 DiT layers (CLI_LAYERS, for
+               the smoke's time limit) with the overrides it prints (paths,
                use_lpips false, one trial dir, an eval at step 4, only the
                forced final saves, a log line every step of the first
                run): --train --max_steps 4, a resume to 6, --export of one
@@ -155,7 +158,7 @@ Phases, one summary line each (every failure raises and exits non-zero):
                1..5; the eval after the restore equals the eval at the
                save bit for bit; a parameter, its EMA and its Adam moment
                restored bit for bit; finite losses; each call's launches
-               equal the derived counts (per step 48 / 24 / 40 / 40 of
+               equal the derived counts (per step 24 / 12 / 40 / 40 of
                #1s / #3 / #2 / #4 with 4 + 6 views, eval passes apart);
                export's PLY, PNG and AVI.  Printed: phase 8's step in
                memory at 4 + 6 views (its own gates), the loader alone over
@@ -349,12 +352,15 @@ Phases, one summary line each (every failure raises and exits non-zero):
                the train step of each training config
                (configs/diffusionGS_rel.yaml, _rel_512, _scene, _scene_512)
                at its own batch_size (each fits 80 GB: --recipe-memory),
+               diffusionGS_scene.yaml at all 24 DiT layers, the others
+               at 12 (RECIPE_LAYERS),
                training resolution and views (4 + 6 rendered objects, 4 + 3 + 4
                = 7 rendered scene frames), with
                system.use_lpips=true system.allow_random_lpips=true (the
                random-frozen VGG16 of lpips_init_params): from step 151
                (lambda_lpips 0.5 for objects, 0.1 for scenes), 1 warm-up
-               + 3 timed steps + 1 profiled (device ms); s/step, device
+               + 2 timed steps (RECIPE_STEPS) + 1 profiled (device ms);
+               s/step, device
                ms, the idle share, the "lpips" range's device ms (CUDA
                events at its edges, the timed steps' median), peak
                memory, b configured beside b run; launches
@@ -372,6 +378,41 @@ Phases, one summary line each (every failure raises and exits non-zero):
                for bit is printed); the LPIPS term timed again with
                cudnn.allow_tf32 switched on, then restored, beside its
                deviation from the f32 value (a number, not a setting).
+  21. wide heads, the splash route and the auxiliary modules
+               a. #5s (`flash_full_mha_stats`, the lse written), the splash
+                  route's serving forward (`splash_mha`, the same kernel,
+                  its lse dropped; bit for bit #5s's o) and #5b at the
+                  DH = 128 tile, head widths 80, 96, 128, 72 and 100 (the
+                  wrapper's padded copy), subset halves and ragged shapes
+                  (WIDE_CASES), against their twins at phase 6's bounds;
+                  the training q~ helper bit for bit at d = 128; ptxas'
+                  registers and spills of the three DH = 128
+                  instantiations (no spill, no C7515-C7520); timed at
+                  b = 4, L = 4098, 8 heads of 128 beside SDPA's forward
+                  and backward alone and the bound, and splash_mha at
+                  b = 1 (the sampler's shape);
+               b. configs/diffusionGS_rel.yaml with dim_heads 128 (width
+                  1024, 8 heads of 128, all 24 layers, bf16, random
+                  weights from seed 0): a 256^2 asset through
+                  DiffusionGSPipeline.batch (exactly 24 x 30 splash
+                  launches, no other attention launch; s/asset, device ms
+                  and the route's part) and phase 8's train step at b = 4
+                  from step 151 (48 #5s + 24 #5b a step, zero packed
+                  launches; s/step, device ms);
+               c. knn_mean_sq_dist on phase 4's 262,146 raw Gaussians at
+                  256^2 (held on 4096 query rows against an f64 brute
+                  force on the card, rtol 1e-3 / atol 1e-5; timed); DDIM
+                  and RF add_noise / scale_noise and step on
+                  [1, 4, 3, 256, 256] against the CPU (elementwise, rtol
+                  1e-6 + 2 f32 ulps of each output's max|ref|); fisheye
+                  unproject / project of 4 x 256^2
+                  pixels of a 640 x 480 fisheye against the CPU and the
+                  round trip (atol 1e-5 in normalized coordinates);
+                  save_gaussians(save_turntable=True) of phase 11's 512^2
+                  trained-statistics Gaussians: 36 frames at 256^2,
+                  exactly 36 blend launches, the AVI written, the
+                  counters; frame 0's blend against blend_tiles_ref on
+                  the same binned lists (phase 4's bounds).
 Timed host windows (phases 5, 8, 11, 12) report the seconds the garbage
 collector ran inside them; each profiler session's garbage is collected
 as soon as it is read, outside them.
@@ -806,7 +847,8 @@ def blend_view(torch, dev, system, res: int, trained: bool = False) -> dict:
                                 grad_map=True)
     return {"name": f"{'trained' if trained else 'init'} {res}^2",
             "packed": rz.pack_rows(pre).detach(), "bins": bins,
-            "tiles_x": tiles_x, "res": res}
+            "tiles_x": tiles_x, "res": res,
+            "xyz": g.xyz[0].detach().float().cpu()}   # phase 21c's knn
 
 
 def blend_culls(torch, view, n_end) -> dict:
@@ -1182,10 +1224,11 @@ def train_batch(torch, dev, b: int, res: int, sup_views: int = N_VIEWS):
 
 def phase_train(torch, dev, label="8 train path", config=CONFIG,
                 overrides=(), profile=True, loaded=None,
-                sup_views: int = N_VIEWS, after=None) -> dict:
+                sup_views: int = N_VIEWS, after=None,
+                steps: int = TRAIN_STEPS) -> dict:
     """The train step of `config` (+ dotlist `overrides`) on a batch of the
     config's per-device batch_size objects at its training_res: 1 warm-up
-    and TRAIN_STEPS timed steps
+    and `steps` timed steps
     from step 151, launches held against the derived counts, and (with
     `profile`) one more step under torch.profiler.  `loaded`: tensors by
     name that the config's weight bootstraps must have loaded.  The EMA must move on
@@ -1230,8 +1273,8 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     ema_before = {k: state.ema_params[k].clone() for k in watch}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(attention, blend_kernel)
-    steps = []
-    for _ in range(TRAIN_STEPS):
+    n_steps, steps = steps, []
+    for _ in range(n_steps):
         with GcClock() as gc_clock:
             t0 = time.perf_counter()
             state, m = train_step(state, batch)
@@ -1247,6 +1290,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                 "general_fwd": attention.LAUNCHES_FULL,
                 "general_fwd_lse": attention.LAUNCHES_FULL_STATS,
                 "general_bwd": attention.LAUNCHES_FULL_BWD,
+                "splash_fwd": attention.LAUNCHES_SPLASH,
                 "blend_fwd": blend_kernel.LAUNCHES,
                 "blend_bwd": blend_kernel.LAUNCHES_BWD}
     # Per step: every DiT layer runs its attention's stats forward twice
@@ -1261,10 +1305,10 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
              else "general")
     views = batch_size * sup_views
     want = {k: 0 for k in launches}
-    want.update({f"{route}_fwd_lse": TRAIN_STEPS * fwd,
-                 f"{route}_bwd": TRAIN_STEPS * n_layers,
-                 "blend_fwd": TRAIN_STEPS * views,
-                 "blend_bwd": TRAIN_STEPS * views})
+    want.update({f"{route}_fwd_lse": n_steps * fwd,
+                 f"{route}_bwd": n_steps * n_layers,
+                 "blend_fwd": n_steps * views,
+                 "blend_bwd": n_steps * views})
     qkv_grad_norms = [float(model.transformer[i].attn.qkv.weight.grad.norm())
                       for i in range(n_layers)]
     # image_token_decoder makes 262,144 of the 262,146 Gaussians (one per
@@ -1827,17 +1871,32 @@ def phase_smax(torch, dev) -> dict:
 
 def phase_general_sampling(torch, dev) -> dict:
     """9c: the sampling entry point with 16 heads of 48 (general route)."""
+    # 12 of the config's 24 layers: the smoke's time goes to phases 13-14
+    return general_sampling(
+        torch, dev, "9c general-route sampling", (
+            "system.shape_model.width=768", "system.shape_model.dim_heads=48",
+            f"system.shape_model.num_layers={GENERAL_SAMPLING_LAYERS}"),
+        "LAUNCHES_FULL",
+        "configs/diffusionGS_rel.yaml with width 768, dim_heads 48 (16 "
+        "heads, L = 4098) and 12 of its 24 layers; no shipped config uses "
+        "this layout")
+
+
+def general_sampling(torch, dev, label: str, overrides, counter: str,
+                     config: str) -> dict:
+    """The sampling entry point on a config whose every block takes the
+    general route (9c) or the splash route (21b): a warm-up asset, a timed
+    one whose attention launches must be exactly `counter`'s, layers x 30,
+    and a profiled one (device ms, the route's kernel's part)."""
     import numpy as np
 
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
-    # 12 of the config's 24 layers: the smoke's time goes to phases 13-14
-    system = build_system(torch, dev, overrides=(
-        "system.shape_model.width=768", "system.shape_model.dim_heads=48",
-        f"system.shape_model.num_layers={GENERAL_SAMPLING_LAYERS}"))
+    system = build_system(torch, dev, overrides=overrides)
     blocks = system.model.transformer
     if any(blk.attn.packed for blk in blocks):
-        raise AssertionError("16 heads of 48 must take the general route")
+        raise AssertionError(f"{config}: every block must leave the packed "
+                             f"route")
     pipe = DiffusionGSPipeline(system)
     kw = dict(resolution=RES, n_views=N_VIEWS, matting="border")
     pipe.batch([IMAGE], **kw)                       # warm-up run
@@ -1850,8 +1909,7 @@ def phase_general_sampling(torch, dev) -> dict:
     secs = time.perf_counter() - t0
     launches = launch_counts(attention)
     blend_launches = blend_kernel.LAUNCHES
-    want = dict({n: 0 for n in launches},
-                LAUNCHES_FULL=len(blocks) * STEPS)
+    want = dict({n: 0 for n in launches}, **{counter: len(blocks) * STEPS})
     peak = torch.cuda.max_memory_allocated(dev)
     # the device's share of an asset, free of the host's spread: kernel
     # time summed over one more asset (one stream: the sum is busy time)
@@ -1867,12 +1925,8 @@ def phase_general_sampling(torch, dev) -> dict:
            "blend_launches": blend_launches,
            "gaussians_after_filters": int(g.xyz.shape[0]),
            "renders_shape": list(out.renders.shape),
-           "config": "configs/diffusionGS_rel.yaml with width 768, "
-                     "dim_heads 48 (16 heads, L = 4098) and 12 of its 24 "
-                     "layers; no "
-                     "shipped config uses this layout",
-           "card": card_line()}
-    print(f"[9c general-route sampling] {json.dumps(res)}", flush=True)
+           "overflow": out.stats, "config": config, "card": card_line()}
+    print(f"[{label}] {json.dumps(res)}", flush=True)
     if launches != want:
         raise AssertionError(f"attention launches {launches} != {want}")
     if list(out.renders.shape) != [N_VIEWS, 3, RES, RES]:
@@ -2249,7 +2303,7 @@ def phase_general_train_kernels(torch, dev) -> dict:
             < 0.5 * prescale["mean_err_to_serving_twin"]):
         raise AssertionError(f"#5s does not compute the training function: "
                              f"{prescale}")
-    if len(builds) != 3 + 6:    # 3 STATS tiles; dQ and dK/dV at 3 tiles
+    if len(builds) != 4 + 8:    # 4 STATS tiles; dQ and dK/dV at 4 tiles
         raise AssertionError(f"ptxas reports {sorted(builds)}")
     spills = {k: v for k, v in builds.items()
               if v.get("spill_stores") or v.get("spill_loads")}
@@ -2329,6 +2383,9 @@ CONFIG_SCENE_EVAL = os.path.join(ROOT, "configs",
 OBJECTS, OBJECT_VIEWS, OBJECT_RES = 4, 40, 512   # G-Objaverse renders
 SCENES, SCENE_FRAMES, RE10K_HW = 16, 8, (360, 640)
 LAUNCH_STEPS, RESUME_STEPS = 4, 6
+# phase 13's DiT depth: 12 of the config's 24 layers (batch, views and
+# width as configured), for the smoke's time limit
+CLI_LAYERS = 12
 EVAL_PASSES = 4             # launch.EVAL_SEEDS: train_loss passes per eval
 LOADER_BATCHES = 8
 PATH_STEPS = 10             # eval_utils steps_per_transition
@@ -2504,6 +2561,7 @@ def expected_counts(steps=0, evals=0, sample_views=(), path_frames=0,
         "attention.LAUNCHES_SMAX": 0, "attention.LAUNCHES_FULL": 0,
         "attention.LAUNCHES_MHA_FULL": 0,
         "attention.LAUNCHES_FULL_STATS": 0, "attention.LAUNCHES_FULL_BWD": 0,
+        "attention.LAUNCHES_SPLASH": 0,
         "blend_kernel.LAUNCHES": (steps + evals * EVAL_PASSES) * views
         + blend_sample + path_frames,
         "blend_kernel.LAUNCHES_BWD": steps * views,
@@ -2534,6 +2592,7 @@ def phase_launch_train(torch, dev, tmp: str) -> dict:
     overrides = [f"exp_root_dir={tmp}/outputs", f"data.local_dir={data}",
                  f"data.image_dir={images}/", "use_timestamp=false",
                  "system.use_lpips=false",
+                 f"system.shape_model.num_layers={CLI_LAYERS}",
                  f"trainer.eval_every_n_steps={LAUNCH_STEPS}",
                  "checkpoint.every_n_train_steps=1000000"]
     cfg = load_config(CONFIG, cli_args=overrides, makedirs=False)
@@ -2560,7 +2619,9 @@ def phase_launch_train(torch, dev, tmp: str) -> dict:
     # phase 8's step in memory at the loader's 4 + 6 views: the baseline
     # of the step with the loader in the loop
     in_memory = phase_train(torch, dev, "13 in-memory step", CONFIG,
-                            profile=False, sup_views=views)
+                            overrides=(f"system.shape_model.num_layers="
+                                       f"{CLI_LAYERS}",), profile=False,
+                            sup_views=views)
     collect_garbage()
     torch.cuda.empty_cache()
     first, c1, w1 = launch_call(torch, dev, base + [
@@ -2602,11 +2663,13 @@ def phase_launch_train(torch, dev, tmp: str) -> dict:
               if int(r[0]) <= LAUNCH_STEPS]
     wait_s = [float(r[col["loader_wait_s"]]) for r in data_rows]
     evals = read_csv(os.path.join(trial, "eval_metrics.csv"))
-    n_layers = 24
-    want1 = expected_counts(steps=LAUNCH_STEPS, evals=2, views=b * views)
+    n_layers = CLI_LAYERS
+    want1 = expected_counts(steps=LAUNCH_STEPS, evals=2, views=b * views,
+                            n_layers=n_layers)
     want2 = expected_counts(steps=RESUME_STEPS - LAUNCH_STEPS, evals=1,
-                            views=b * views)
+                            views=b * views, n_layers=n_layers)
     want3 = expected_counts(sample_views=(int(cfg.data["gen_views"]),),
+                            n_layers=n_layers,
                             samples=1, path_frames=(int(
                                 cfg.data["gen_views"]) - 1) * PATH_STEPS + 1)
     med = statistics.median(step_s[1:])
@@ -4711,6 +4774,17 @@ LPIPS_ON = ("system.use_lpips=true", "system.allow_random_lpips=true")
 RECIPES = ("diffusionGS_rel.yaml", "diffusionGS_rel_512.yaml",
            "diffusionGS_scene.yaml", "diffusionGS_scene_512.yaml")
 CHECK_RECIPE = "diffusionGS_rel.yaml"   # the LPIPS checks' batch
+# phase 20's timed steps (after the warm-up, before the profiled one):
+# two, not TRAIN_STEPS, for the smoke's time limit
+RECIPE_STEPS = 2
+# phase 20's DiT depth where it is not the config's 24: 12 for the
+# object recipes (far from the card's 80 GB), for the smoke's time limit,
+# and for scene_512: at 24 (b = 12, 79.7 GB peak) its gradient turned
+# non-finite on the H100 in 2 of about 18 steps, from finite losses, and
+# in none of 56 steps of runs that read tensors inside the step (ROADMAP
+# Queue 3); --recipe-memory still steps it at 24
+RECIPE_LAYERS = {"diffusionGS_rel.yaml": 12, "diffusionGS_rel_512.yaml": 12,
+                 "diffusionGS_scene_512.yaml": 12}
 LPIPS_PAIRS = 8
 LPIPS_RTOL = 2e-4           # the value, card against CPU
 LPIPS_GRAD_REL = 1e-3       # d lpips / d render, rel-max, card against CPU
@@ -4993,21 +5067,24 @@ def phase_recipes(torch, dev) -> dict:
         n_in, views = recipe_views(cfg)
         if n_in != N_VIEWS:
             raise AssertionError(f"20 {name}: {n_in} input views")
+        layers = RECIPE_LAYERS.get(name)
+        depth = (f"system.shape_model.num_layers={layers}",) if layers else ()
         t0 = time.perf_counter()
         with LpipsSpans(torch) as spans:
             res = phase_train(
-                torch, dev, f"20 {name}", config, overrides=LPIPS_ON,
-                sup_views=views,
+                torch, dev, f"20 {name}", config, overrides=LPIPS_ON + depth,
+                sup_views=views, steps=RECIPE_STEPS,
                 after=lambda system, batch, c=(name == CHECK_RECIPE):
                     recipe_after(torch, dev, c, system, batch))
         # the loss's lpips calls: the warm-up step's, then the timed ones
-        range_ms = spans.ms()[1:1 + TRAIN_STEPS]
+        range_ms = spans.ms()[1:1 + RECIPE_STEPS]
         secs, device_ms = res["seconds_per_step"], res["device_ms_per_step"]
         out["recipes"][name] = {
             "batch_configured": int(cfg.data["batch_size"]),
             "batch_run": res["batch_size"],
             "resolution": int(cfg.data["training_res"][0]),
             "views": f"{n_in} in, {views} rendered",
+            "dit_layers": layers or "as configured",
             "seconds_per_step": secs, "device_ms_per_step": device_ms,
             "device_idle_share": 1.0 - device_ms / 1e3 / secs,
             "lpips_range_device_ms": statistics.median(range_ms),
@@ -5121,6 +5198,336 @@ def recipe_memory(torch, dev, name: str) -> dict:
     return out
 
 
+# 21a: (b, l, h, d, q0, q1, lk, contiguous q/k) as GENERAL_TRAIN_CASES: the
+# DH = 128 tile at the wide DiT's training shape (the first case, timed),
+# heads of 80 / 96 / 72,
+# 100 (200-byte heads: the wrapper's padded copy), subset halves and
+# shapes off the tiling
+WIDE_CASES = (
+    (4, 4098, 8, 128, 0, 4098, 4098, False),
+    (2, 1100, 4, 80, 0, 1100, 1100, False),
+    (2, 700, 3, 96, 0, 700, 700, True),
+    (2, 1100, 2, 72, 0, 1100, 1100, False),
+    (1, 333, 2, 100, 0, 333, 333, False),
+    (2, 4098, 2, 128, 1026, 4098, 4098, False),
+    (2, 4098, 2, 128, 0, 1026, 1026, False),
+    (1, 70, 3, 128, 0, 70, 70, False), (1, 3, 2, 96, 0, 1, 3, False))
+WIDE_DIT = ("system.shape_model.dim_heads=128",)   # 8 heads of 128
+KNN_CHECK_ROWS = 4096
+KNN_TOL = dict(rtol=1e-3, atol=1e-5)            # test_parity_tools.py:19
+# the schedulers, card vs CPU, elementwise: rtol 1e-6 plus an atol of 2
+# f32 ulps (eps = 2^-23) of each output's max|ref|.  PyTorch divides a
+# CUDA tensor by a scalar through its reciprocal (one ulp off the CPU's
+# quotient), and DDIM's update cancels its two terms where x0 and eps
+# nearly balance, so an output near 0 keeps the ulps of its terms
+SCHED_RTOL = 1e-6
+SCHED_ULPS = 2
+FISHEYE_ATOL = 1e-5
+TURNTABLE_FRAMES = 36
+
+
+def phase_wide_kernels(torch, dev) -> dict:
+    """21a: #5s, the splash serving forward and #5b at the DH = 128 tile
+    against their twins; the build's report; times at b = 4, L = 4098, 8
+    heads of 128."""
+    import torch.nn.functional as F
+
+    from open_diffusiongs_tpu_torch.ops import _build, attention
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases, timed, padded = {}, None, []
+    for b, n, h, d, q0, q1, lk, contiguous in WIDE_CASES:
+        name = f"{b}x{n}x{h}x{d}"
+        if (q0, q1, lk) != (0, n, n):
+            name += f" queries {q0}:{q1} over {lk} keys"
+        if contiguous:
+            name += " contiguous q/k"
+        cases[name], inputs = general_train_case(torch, dev, gen, b, n, h, d,
+                                                 q0, q1, lk, contiguous)
+        q, k, v, o = inputs[:4]
+        served = attention.splash_mha(q, k, v)
+        torch.cuda.synchronize()
+        cases[name]["splash_equals_stats_o"] = bool(torch.equal(served, o))
+        if d * 2 % 16:           # rows TMA cannot address
+            padded.append(not cases[name]["tma_reads_views"])
+        if timed is None:
+            timed = inputs
+        del inputs, served
+    q, k, v, o, do, lse = timed
+    helper = torch.equal(attention._train_prescaled_q(q), (
+        q.float() * attention._train_scale(128, q.dtype)).to(torch.bfloat16))
+    builds, warnings = {}, 0
+    for src, entry in (("flash_full_fwd.cu", "flash_full_kernel"),
+                       ("flash_full_bwd.cu", "flash_full_bwd")):
+        log = _build.build_log(src)
+        builds.update({f"{src} {key}": val for key, val in
+                       ptxas_summary(log, entry).items()
+                       if "DH=128" in key})
+        warnings += len(re.findall(r"C75(?:15|19|20)", log))
+    times = general_train_timing(torch, q, k, v, o, do, lse)
+    times["splash_ms"] = cuda_ms(lambda: attention.splash_mha(q, k, v), 20)
+    del timed, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    # the serving forward at the sampler's shape, b = 1
+    q1, k1, v1 = fused_heads(torch, dev, gen, 1, 4098, 8, 128)
+    serving = {"ms": cuda_ms(lambda: attention.splash_mha(q1, k1, v1), 20),
+               "plain_ms": cuda_ms(lambda: full_twin_by_head(
+                   torch, attention.flash_full_mha_stats_ref, 8, q1, k1,
+                   v1), 1),
+               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   *(x.transpose(1, 2) for x in (q1, k1, v1))), 20),
+               **attn_fwd_bound(1, 4098, 4098, 8, 128, pv="tf32")}
+    del q1, k1, v1
+    res = {"cases": cases, "times": times, "serving_b1": serving,
+           "train_prescale_helper_bit_exact": helper, "ptxas": builds,
+           "ptxas_serialisation_warnings": warnings,
+           "max_abs_err_fwd": max(max(c["o_max_abs"], c["lse_max_abs"])
+                                  for c in cases.values()),
+           "max_abs_err_bwd": max(c[f"{x}_max_abs"] for c in cases.values()
+                                  for x in ("dq", "dk", "dv")),
+           "timed": "b=4 L=4098 h=8 d=128, bf16 column slices of a fused "
+                    "qkv; splash_mha also at b=1",
+           "card": card_line()}
+    print(f"[21a wide-head kernels] {json.dumps(res)}", flush=True)
+    for name, c in cases.items():
+        checks = [("o rel-max", c["o_rel_max"], ATTN_REL_BOUND),
+                  ("lse max abs", c["lse_max_abs"], LSE_ABS_BOUND)]
+        checks += [(f"{x} rel-max", c[f"{x}_rel_max"], GRAD_REL_BOUND)
+                   for x in ("dq", "dk", "dv")]
+        for what, val, lim in checks:
+            if not val <= lim:
+                raise AssertionError(f"wide heads {name}: {what} {val:.3g} "
+                                     f"> {lim}")
+        if not c["splash_equals_stats_o"]:
+            raise AssertionError(f"wide heads {name}: splash_mha differs "
+                                 f"from #5s's o")
+    if not (padded and all(padded)):
+        raise AssertionError("heads whose rows TMA cannot address must take "
+                             "the wrapper's padded copy")
+    if not helper:
+        raise AssertionError("the training q~ differs from bf16(q * "
+                             "bf16(128^-1/2)) on the card")
+    if len(builds) != 3:
+        raise AssertionError(f"ptxas reports {sorted(builds)} at DH = 128")
+    spills = {key: val for key, val in builds.items()
+              if val.get("spill_stores") or val.get("spill_loads")}
+    if spills or warnings:
+        raise AssertionError(f"ptxas: spills {spills}, {warnings} wgmma "
+                             f"serialisation warnings")
+    return res
+
+
+def phase_wide_dit(torch, dev) -> dict:
+    """21b: the full-width DiT with 8 heads of 128 through the splash
+    route: one 256^2 asset (sampling) and phase 8's train step."""
+    config = ("configs/diffusionGS_rel.yaml with dim_heads 128 (width 1024, "
+              "8 heads of 128, 24 layers, L = 4098); no shipped config uses "
+              "this layout")
+    sampling = general_sampling(torch, dev, "21b wide-head sampling",
+                                WIDE_DIT, "LAUNCHES_SPLASH", config)
+    torch.cuda.empty_cache()
+    train = phase_train(torch, dev, label="21b wide-head train step",
+                        overrides=WIDE_DIT)
+    torch.cuda.empty_cache()
+    return {"sampling": sampling, "train": train}
+
+
+def knn_brute_f64(torch, pts, rows):
+    """Mean squared distance to the 3 nearest other points of pts[rows], in
+    f64 on the card (512 query rows at a time)."""
+    p64 = pts.double()
+    sq = (p64 * p64).sum(-1)
+    out = []
+    for part in rows.split(512):
+        d2 = (sq[part, None] + sq[None] - 2.0 * p64[part] @ p64.T).clamp_(
+            min=0.0)
+        d2[torch.arange(len(part), device=pts.device), part] = math.inf
+        out.append(torch.topk(d2, 3, dim=-1, largest=False).values.mean(-1))
+    return torch.cat(out)
+
+
+def fisheye_case(torch, dev):
+    """4 cameras of a 640 x 480 fisheye (tests/test_camera_rays.py:82-110's
+    coefficients, focal and centre moved a little per camera) and a
+    256 x 256 grid of their pixels."""
+    import numpy as np
+    params = np.zeros((4, 16), np.float32)
+    for i in range(4):
+        params[i, 0:4] = [350.0 + 3 * i, 352.0 - 2 * i, 320.0 + i, 240.0 - i]
+        params[i, 4:10] = [0.05, -0.01, 0.002, 0.0, 0.0, 0.0]
+        params[i, 10:12] = [1e-3, -5e-4]
+        params[i, 12:16] = [2e-4, -1e-4, 5e-5, 1e-4]
+    u, v = np.meshgrid(np.linspace(0.5, 639.5, 256, dtype=np.float32),
+                       np.linspace(0.5, 479.5, 256, dtype=np.float32))
+    uv = np.broadcast_to(np.stack([u, v], -1).reshape(1, -1, 2),
+                         (4, 256 * 256, 2)).copy()
+    return torch.from_numpy(uv).to(dev), torch.from_numpy(params).to(dev)
+
+
+def turntable_frame0(torch, dev, g, res, cfg):
+    """Frame 0 of save_gaussians' turntable, binned as the renderer bins
+    it: the blend kernel and its twin on the same lists (outputs and end
+    slots, phase 4's bounds)."""
+    from open_diffusiongs_tpu_torch.ops import blend_kernel
+    from open_diffusiongs_tpu_torch.ops import camera as cam_lib
+    from open_diffusiongs_tpu_torch.ops import gs_math
+    from open_diffusiongs_tpu_torch.ops import rasterize as rz
+    from open_diffusiongs_tpu_torch.utils.saving import turntable_cameras
+    c2ws, fxy = turntable_cameras(TURNTABLE_FRAMES, h=res, w=res)
+    act = rz.Gaussians(*(torch.as_tensor(x, device=dev) for x in g)
+                       ).activate()
+    cov3d = gs_math.build_cov3d(act.scaling, act.rotation)
+    cam = cam_lib.CameraParams(*(x[0] for x in cam_lib.make_camera(
+        torch.from_numpy(c2ws[:1]).to(dev), torch.from_numpy(fxy[:1]).to(dev),
+        res, res)))
+    sh_degree = int(round(g.features.shape[-2] ** 0.5)) - 1
+    pre = rz.preprocess_view(act, cov3d, cam, res, res, sh_degree)
+    pre, _ = rz._clip_rect_centered(pre, cfg.max_tiles_per_gaussian)
+    tiles_x = res // rz.TILE
+    bins = rz._bin_tiles_single(pre, tiles_x, tiles_x, cfg, grad_map=True)
+    view = {"name": f"turntable frame 0 {res}^2",
+            "packed": rz.pack_rows(pre).detach(), "bins": bins,
+            "tiles_x": tiles_x, "res": res}
+    args = (view["packed"], bins.idx, bins.counts, tiles_x)
+    out = blend_kernel.blend_tiles(*args, return_end=True)
+    ref = blend_kernel.blend_tiles_ref(*args, return_end=True)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out[:3], ref[:3]))
+    n_flips = int((out[3] != ref[3]).sum())
+    flips = (end_slot_flips(torch, view, out[3], ref[3])
+             if n_flips <= END_FLIP_MAX_PIXELS else [])
+    return {"max_abs_err": err, "n_end_mismatch_pixels": n_flips,
+            "n_end_mismatch_rel_gap": flips,
+            "ok": (err <= BLEND_ABS_BOUND and n_flips <= END_FLIP_MAX_PIXELS
+                   and all(x <= END_FLIP_REL_BOUND for x in flips))}
+
+
+def phase_aux(torch, dev, knn_xyz, g512) -> dict:
+    """21c: knn, the DDIM / RF schedulers, fisheye and the turntable saver
+    on the card."""
+    import numpy as np
+
+    from open_diffusiongs_tpu_torch.diffusion import ddim, rf
+    from open_diffusiongs_tpu_torch.ops import blend_kernel, knn
+    from open_diffusiongs_tpu_torch.ops import rasterize as rz
+    from open_diffusiongs_tpu_torch.utils import fisheye, saving
+    res = {}
+    # knn on the 262,146 raw Gaussians of phase 4's 256^2 view
+    pts = knn_xyz.to(dev)
+    t0 = time.perf_counter()
+    got = knn.knn_mean_sq_dist(pts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rows = torch.randperm(pts.shape[0], device=dev, generator=torch.Generator(
+        device=dev).manual_seed(3))[:KNN_CHECK_ROWS]
+    want = knn_brute_f64(torch, pts, rows)
+    err = (got[rows].double() - want).abs()
+    res["knn"] = {"n": int(pts.shape[0]),
+                  "block_rows": knn.knn_block_rows(pts.shape[0]),
+                  "s": first_s, "ms": cuda_ms(
+                      lambda: knn.knn_mean_sq_dist(pts), 1, warmup=0),
+                  "max_abs_err": float(err.max()),
+                  "ok": bool((err <= KNN_TOL["atol"] + KNN_TOL["rtol"]
+                              * want.abs()).all()),
+                  "finite": bool(torch.isfinite(got).all()),
+                  "median": float(got.median())}
+    del pts, got, want, err
+    torch.cuda.empty_cache()
+    # the schedulers on [1, 4, 3, 256, 256], card against CPU
+    rng = np.random.default_rng(21)
+    x0, noise, out = (torch.from_numpy(rng.normal(size=(1, 4, 3, RES, RES))
+                                       .astype(np.float32))
+                      for _ in range(3))
+    pairs = []
+    for pred in ("sample", "epsilon", "v_prediction"):
+        s = ddim.DDIMScheduler(1000, prediction_type=pred)
+        s.set_timesteps(STEPS)
+        for t in (int(s.timesteps[0]), int(s.timesteps[STEPS // 2]), 0):
+            pairs += list(zip(s.step(out.to(dev), t, x0.to(dev)),
+                              s.step(out, t, x0)))
+        pairs.append((s.add_noise(x0.to(dev), noise.to(dev),
+                                  torch.tensor([421], device=dev)),
+                      s.add_noise(x0, noise, torch.tensor([421]))))
+    f = rf.FlowMatchEulerDiscreteScheduler(1000, shift=3.0)
+    f.set_timesteps(STEPS)
+    for i in (0, STEPS // 2, STEPS - 1):
+        pairs.append((f.step(out.to(dev), i, x0.to(dev)), f.step(out, i, x0)))
+        pairs.append((f.scale_noise(x0.to(dev), torch.tensor([i], device=dev),
+                                    noise.to(dev)),
+                      f.scale_noise(x0, torch.tensor([i]), noise)))
+    # each pair's largest |err| over its bound (<= 1 passes)
+    sched_err = [float(((a.cpu() - b).abs() / (
+        SCHED_RTOL * b.abs() + SCHED_ULPS * torch.finfo(b.dtype).eps
+        * b.abs().max())).max()) for a, b in pairs]
+    res["schedulers"] = {
+        "pairs": len(pairs), "err_over_bound": max(sched_err),
+        "rel_max_err": max(rel_max(a.cpu(), b) for a, b in pairs),
+        "max_abs_err": max(float((a.cpu() - b).abs().max())
+                           for a, b in pairs),
+        "ok": max(sched_err) <= 1.0}
+    # fisheye: pixels -> rays -> pixels, card against CPU
+    uv, params = fisheye_case(torch, dev)
+    rays = fisheye.fisheye624_unproject(uv, params)
+    back = fisheye.fisheye624_project(rays, params)
+    rays_cpu = fisheye.fisheye624_unproject(uv.cpu(), params.cpu())
+    back_cpu = fisheye.fisheye624_project(rays_cpu, params.cpu())
+    focal = params[:, None, :2]
+
+    def norm_err(a, b):        # pixels in units of the focal length
+        return float(((a - b) / focal).abs().max())
+
+    res["fisheye"] = {
+        "rays": int(uv.shape[0] * uv.shape[1]),
+        "unproject_card_vs_cpu": float((rays.cpu() - rays_cpu).abs().max()),
+        "project_card_vs_cpu": norm_err(back, back_cpu.to(dev)),
+        "round_trip": norm_err(back, uv)}
+    res["fisheye"]["ok"] = max(v for k, v in res["fisheye"].items()
+                               if k != "rays") <= FISHEYE_ATOL
+    # the turntable of phase 11's 512^2 trained-statistics Gaussians
+    cfg = rz.RasterizeConfig()
+    frame0 = turntable_frame0(torch, dev, g512, RES, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "asset.ply")
+        reset_launches(blend_kernel)
+        t0 = time.perf_counter()
+        saving.save_gaussians(g512, ply, save_turntable=True, h=RES, w=RES,
+                              raster_cfg=cfg, device=dev,
+                              turntable_frames=TURNTABLE_FRAMES)
+        secs = time.perf_counter() - t0
+        launches = blend_kernel.LAUNCHES
+        avi = os.path.join(tmp, "asset_turntable.avi")
+        avi_bytes = os.path.getsize(avi) if os.path.exists(avi) else 0
+    # the same render again: its time alone and its overflow counters
+    t0 = time.perf_counter()
+    out = rz.render(
+        rz.Gaussians(*(torch.as_tensor(x, device=dev)[None] for x in g512)),
+        *(torch.from_numpy(x).to(dev)[None] for x in
+          saving.turntable_cameras(TURNTABLE_FRAMES, h=RES, w=RES)),
+        RES, RES, cfg=cfg)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    stats = {k: int(out[k]) for k in ("overflow_tiles", "overflow_gaussians",
+                                      "binned_entries")}
+    del out
+    res["turntable"] = {"gaussians": int(g512.xyz.shape[0]),
+                        "frames": TURNTABLE_FRAMES, "res": RES,
+                        "seconds": secs, "render_seconds": render_s,
+                        "blend_launches": launches, "avi_bytes": avi_bytes,
+                        **stats, "frame0": frame0}
+    res["card"] = card_line()
+    print(f"[21c auxiliary modules] {json.dumps(res)}", flush=True)
+    for name in ("knn", "schedulers", "fisheye"):
+        if not res[name]["ok"]:
+            raise AssertionError(f"21c {name}: {res[name]}")
+    if not res["knn"]["finite"]:
+        raise AssertionError("knn: non-finite distances")
+    if launches != TURNTABLE_FRAMES or not avi_bytes:
+        raise AssertionError(f"turntable: {launches} blend launches (want "
+                             f"{TURNTABLE_FRAMES}), AVI {avi_bytes} bytes")
+    if not frame0["ok"]:
+        raise AssertionError(f"turntable frame 0: {frame0}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5155,6 +5562,7 @@ def main() -> int:
     attn = timed("3 attention", phase_attention, torch, dev)
     system = timed("system", build_system, torch, dev)
     blend, views = timed("4 blend", phase_blend, torch, dev, system)
+    knn_xyz = views[0]["xyz"]   # the init 256^2 view's raw Gaussians, 21c
     kept_256 = []       # phase 5's timed asset, for phase 15
     main_res = timed("5 main path", phase_main, torch, dev, system, kept_256)
     attn_train = timed("6 attention training", phase_attention_train,
@@ -5202,6 +5610,7 @@ def main() -> int:
     serving = timed("15 serving surface", phase_serving, torch, dev, system,
                     kept_256[0].gaussians, kept_256[0].renders,
                     kept_512[0].gaussians)
+    g512 = kept_512[0].gaussians    # the turntable's Gaussians, 21c
     del system, kept_256, kept_512
     torch.cuda.empty_cache()
     general_kernels = timed("16a general-route training kernels",
@@ -5228,6 +5637,13 @@ def main() -> int:
         synth = timed("19 synthetic trees", phase_synthetic, torch, dev, tmp)
     torch.cuda.empty_cache()
     recipes = timed("20 recipes as configured", phase_recipes, torch, dev)
+    torch.cuda.empty_cache()
+    wide = timed("21a wide-head kernels", phase_wide_kernels, torch, dev)
+    torch.cuda.empty_cache()
+    wide_dit = timed("21b wide-head DiT", phase_wide_dit, torch, dev)
+    aux = timed("21c auxiliary modules", phase_aux, torch, dev, knn_xyz,
+                g512)
+    del g512, knn_xyz
     ring = {k: parallel["sp2"][k] for k in ("step_launches",
                                             "sampler_launches")}
     print(f"[phase seconds] {json.dumps(seconds)}", flush=True)
@@ -5267,8 +5683,8 @@ def main() -> int:
         return {"launches_synthetic": synth["launches"][counter]}
 
     def recipe_launches(counter):
-        """A training row's launches in phase 20: the four recipes' 3
-        timed steps each."""
+        """A training row's launches in phase 20: the four recipes'
+        RECIPE_STEPS timed steps each."""
         return {"launches_recipes": recipes["launches"][counter]}
 
     src = "open_diffusiongs_tpu_torch/csrc/"
@@ -5299,7 +5715,12 @@ def main() -> int:
          **cli_launches("blend_kernel.LAUNCHES"),
          **par18_launches("blend_kernel.LAUNCHES", "blend"),
          **synth_launches("blend_kernel.LAUNCHES"),
-         **recipe_launches("blend_fwd")},
+         **recipe_launches("blend_fwd"),
+         "launches_turntable": aux["turntable"]["blend_launches"],
+         "launches_wide_dit_asset":
+             wide_dit["sampling"]["blend_launches"],
+         "max_abs_err_turntable_frame0":
+             aux["turntable"]["frame0"]["max_abs_err"]},
         {"name": "flash_mha_packed(with_stats=True)", "route": "cuda",
          "source": src + "flash_attn_fwd.cu",
          "replaces": "open_diffusiongs_tpu/ops/attention.py:212",
@@ -5420,6 +5841,46 @@ def main() -> int:
          "ms_d48": t48["bwd_ms"], "bound_ms_d48": t48["bwd_bound"]["bound_ms"],
          "library_ms_d48": t48["sdpa_bwd_ms"],
          "launches_qk_norm_stack": qk_train["launches"]["LAUNCHES_FULL_BWD"]},
+        # the DH = 128 tile (heads 64 < d <= 128, the splash route) at
+        # b = 4, L = 4098, 8 heads of 128; launches in phase 21b's asset
+        # (the serving forward) and its three timed train steps
+        {"name": "splash_mha (DH=128)", "route": "cuda",
+         "source": src + "flash_full_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/models/transformer.py:75 "
+                     "(_splash_attention at heads wider than 64: splash's "
+                     "forward, a JAX library kernel; #5s without its lse)",
+         "launches": wide_dit["sampling"]["launches"]["LAUNCHES_SPLASH"],
+         "max_abs_err": wide["max_abs_err_fwd"],
+         "ms": wide["times"]["splash_ms"],
+         "plain_ms": wide["times"]["fwd_plain_ms"],
+         **roof(wide["times"]["fwd_bound"]),
+         "library_ms": wide["times"]["sdpa_fwd_ms"],
+         "ms_b1": wide["serving_b1"]["ms"],
+         "plain_ms_b1": wide["serving_b1"]["plain_ms"],
+         "bound_ms_b1": wide["serving_b1"]["bound_ms"],
+         "library_ms_b1": wide["serving_b1"]["sdpa_ms"]},
+        {"name": "flash_full_mha_stats (DH=128)", "route": "cuda",
+         "source": src + "flash_full_fwd.cu",
+         "replaces": "open_diffusiongs_tpu/models/transformer.py:141 "
+                     "(_ffsb_fwd at heads wider than 64: splash's forward, "
+                     "a JAX library kernel)",
+         "launches": wide_dit["train"]["launches"]["general_fwd_lse"],
+         "max_abs_err": wide["max_abs_err_fwd"],
+         "ms": wide["times"]["fwd_ms"],
+         "plain_ms": wide["times"]["fwd_plain_ms"],
+         **roof(wide["times"]["fwd_bound"]),
+         "library_ms": wide["times"]["sdpa_fwd_ms"]},
+        {"name": "flash_full_mha_bwd (DH=128)", "route": "cuda",
+         "source": src + "flash_full_bwd.cu",
+         "replaces": "open_diffusiongs_tpu/models/transformer.py:148 "
+                     "(_ffsb_bwd at heads wider than 64: splash's backward, "
+                     "a JAX library kernel)",
+         "launches": wide_dit["train"]["launches"]["general_bwd"],
+         "max_abs_err": wide["max_abs_err_bwd"],
+         "ms": wide["times"]["bwd_ms"],
+         "plain_ms": wide["times"]["bwd_plain_ms"],
+         **roof(wide["times"]["bwd_bound"]),
+         "library_ms": wide["times"]["sdpa_bwd_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

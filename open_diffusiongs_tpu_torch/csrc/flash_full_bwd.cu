@@ -19,7 +19,8 @@
 // their q~/dO rows and lse/delta as 0, P forced to 0); no output row past
 // lq / lk is written.  Any head width d <= 64: tiles DH of 16, 32 or 64,
 // TMA zero-fills the columns >= d, which add nothing to q~.k or dO.v, and
-// the columns >= d of dq / dk / dv are never stored.
+// the columns >= d of dq / dk / dv are never stored; also d <= 128 (DH =
+// 128, below).
 //
 // What bounds it: at b = 4, L = 4098, h = 16, d = 64 the pair runs 7
 // products of 2 L^2 d per head (S and dP in both kernels, then dQ, dK, dV),
@@ -52,6 +53,20 @@
 //     before tile j's accumulating products and the exp2 work of j+1 runs
 //     while those are on the tensor cores (P / dS fragments double-
 //     buffered).
+// Wide heads, 64 < d <= 128 (DH = 128; the splash route, ops/attention.py::
+// splash_attention): tiles are stored span by span (csrc/hopper.cuh,
+// span_of) and read by the single-span descriptors; every product whose N
+// is the head width runs one m64n64 wgmma per span.  Two changes keep the
+// consumers' registers where they are at DH = 64 (ptxas' report, kept
+// beside the library, shows the spills):
+//   * dQ takes q~ and dO as shared-memory A operands (ss) instead of
+//     register fragments, which would add 64 registers beside dq's 64;
+//   * dK/dV splits the output columns: a block owns 128 keys and ONE
+//     64-column span of dk / dv (grid.x = 2 x the key blocks), so its two
+//     accumulators stay 2 x 32 registers.  Both span blocks rebuild S^T
+//     and dP^T over all 128 columns: the pair runs 9 products of
+//     2 L^2 d per head instead of 7 (+29 %); the P / dS double-buffering
+//     is kept.
 // Outputs are new contiguous tensors, dq [b, lq, h, d] and dk / dv
 // [b, lk, h, d].
 
@@ -109,18 +124,18 @@ __device__ __forceinline__ uint32_t& frag_of(uint32_t (&f)[ROWS / 16][4],
 }
 
 // Write this thread's rows row0, row0 + 8 (those < rows) and columns < d
-// of a [64, DH] accumulator, scaled, into head `head` of batch element bi
-// of a contiguous [b, rows, h, d] tensor.
+// of a [64, DH] accumulator holding columns c0 .. c0 + DH - 1, scaled, into
+// head `head` of batch element bi of a contiguous [b, rows, h, d] tensor.
 template <int DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, int bi,
                                            int head, int rows, int h, int d,
                                            int row0,
                                            const float (&acc)[DH / 2],
-                                           float scale, int t4) {
+                                           float scale, int t4, int c0 = 0) {
   const bool pairs = (d & 1) == 0;   // column pairs 4-byte aligned
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
+    const int c = c0 + n * 8 + 2 * t4;
     if (c >= d) continue;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -170,7 +185,12 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
   float dq[DH / 2], sacc[ROWS / 2], pacc[ROWS / 2];
   typedef uint32_t Frags[ROWS / 16][4];
   Frags ds0, ds1;   // dS of two tiles
-  uint32_t qf[KSTEPS][4], df[KSTEPS][4];   // q~ and dO as register A
+  // q~ and dO as register A for DH <= 64; from shared memory for DH = 128
+  // (A_SMEM), whose 64 registers of fragments would not fit beside dq
+  constexpr bool A_SMEM = DH > 64;
+  uint32_t qf[A_SMEM ? 1 : KSTEPS][4], df[A_SMEM ? 1 : KSTEPS][4];
+  const __nv_bfloat16* qt = s.q + wg * ROWS * DH;   // this warpgroup's rows
+  const __nv_bfloat16* dt = s.d + wg * ROWS * DH;
   zero_acc<DH>(dq);
 
   auto wait_full = [&](int j) {
@@ -178,23 +198,35 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
   };
   auto issue_scores = [&](int j) {   // S = q~ . K^T, dP = dO . V^T
     const int st = j % NSTAGE;
-    const uint64_t kd = make_desc<DH>(s.k[st]), vd = make_desc<DH>(s.v[st]);
+    if constexpr (A_SMEM) {
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      Wgmma<ROWS>::template rs<0>(sacc, qf[kk], desc_add(kd, kk * 32),
-                                  kk > 0);
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        Wgmma<ROWS>::template ss<0>(sacc, kdesc_tile<DH>(qt, ROWS, kk),
+                                    kdesc_tile<DH>(s.k[st], ROWS, kk),
+                                    kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
-      Wgmma<ROWS>::template rs<0>(pacc, df[kk], desc_add(vd, kk * 32),
-                                  kk > 0);
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        Wgmma<ROWS>::template ss<0>(pacc, kdesc_tile<DH>(dt, ROWS, kk),
+                                    kdesc_tile<DH>(s.v[st], ROWS, kk),
+                                    kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        Wgmma<ROWS>::template rs<0>(sacc, qf[kk],
+                                    kdesc_tile<DH>(s.k[st], ROWS, kk),
+                                    kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+        Wgmma<ROWS>::template rs<0>(pacc, df[kk],
+                                    kdesc_tile<DH>(s.v[st], ROWS, kk),
+                                    kk > 0);
+    }
     wgmma_commit();
   };
   auto issue_grad = [&](int j, const Frags& dsf) {
-    const uint64_t kd = make_desc<DH>(s.k[j % NSTAGE]);
 #pragma unroll
     for (int kj = 0; kj < ROWS / 16; ++kj)   // dQ += dS . K (K MN-major)
-      Wgmma<DH>::template rs<1>(dq, dsf[kj],
-                                desc_add(kd, kj * 16 * DH * 2), 1);
+      mma_mn<DH>(dq, dsf[kj], s.k[j % NSTAGE], ROWS, kj);
     wgmma_commit();
   };
   auto make_ds = [&](int j, Frags& dsf) {
@@ -237,8 +269,10 @@ __device__ __forceinline__ void dq_consumer(const BwdParams& p, DqSmem<DH>& s,
   };
 
   mbar_wait(&s.res, 0);
-  load_a_frags<DH>(s.q, wg * ROWS + warp * 16 + g, t4, qf);
-  load_a_frags<DH>(s.d, wg * ROWS + warp * 16 + g, t4, df);
+  if constexpr (!A_SMEM) {
+    load_a_frags_tile<DH>(qt, ROWS, warp * 16 + g, t4, qf);
+    load_a_frags_tile<DH>(dt, ROWS, warp * 16 + g, t4, df);
+  }
   wait_full(0);
   wgmma_fence();
   issue_scores(0);
@@ -283,15 +317,19 @@ flash_full_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
     if (threadIdx.x == 2 * WG) {
       mbar_expect_tx(&s.res, 2 * BLOCK * DH * 2);
       for (int r = 0; r < BLOCK; r += ROWS) {
-        tma_load_4d(s.q + r * DH, &p.tq, &s.res, 0, head, q0 + r, bi);
-        tma_load_4d(s.d + r * DH, &p.tdo, &s.res, 0, head, q0 + r, bi);
+        tma_load_heads<DH>(s.q + r * DH, &p.tq, &s.res, head, q0 + r, bi,
+                           ROWS);
+        tma_load_heads<DH>(s.d + r * DH, &p.tdo, &s.res, head, q0 + r, bi,
+                           ROWS);
       }
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % NSTAGE;
         mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(&s.full[st], 2 * ROWS * DH * 2);
-        tma_load_4d(s.k[st], &p.tk, &s.full[st], 0, head, j * ROWS, bi);
-        tma_load_4d(s.v[st], &p.tv, &s.full[st], 0, head, j * ROWS, bi);
+        tma_load_heads<DH>(s.k[st], &p.tk, &s.full[st], head, j * ROWS, bi,
+                           ROWS);
+        tma_load_heads<DH>(s.v[st], &p.tv, &s.full[st], head, j * ROWS, bi,
+                           ROWS);
       }
     }
   } else {
@@ -308,45 +346,46 @@ flash_full_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
 template <int DH>
 __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
                                              DkvSmem<DH>& s, int wg, int k0,
-                                             int head, int bi, int n_qt) {
+                                             int cs, int head, int bi,
+                                             int n_qt) {
   constexpr int KSTEPS = DH / 16;
+  constexpr int OC = span_of<DH>();   // output columns of this block
   typedef uint32_t Frags[ROWS / 16][4];
   const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int r0 = k0 + wg * ROWS + warp * 16 + g;   // keys r0 and r0 + 8
-  float dk[DH / 2], dv[DH / 2], sacc[ROWS / 2], pacc[ROWS / 2];
+  float dk[OC / 2], dv[OC / 2], sacc[ROWS / 2], pacc[ROWS / 2];
   Frags pf0, ds0, pf1, ds1;   // P^T and dS^T of two tiles
-  zero_acc<DH>(dk);
-  zero_acc<DH>(dv);
-  const uint64_t kd = make_desc<DH>(s.k + wg * ROWS * DH);
-  const uint64_t vd = make_desc<DH>(s.v + wg * ROWS * DH);
+  zero_acc<OC>(dk);
+  zero_acc<OC>(dv);
+  const __nv_bfloat16* kt = s.k + wg * ROWS * DH;   // this warpgroup's keys
+  const __nv_bfloat16* vt = s.v + wg * ROWS * DH;
 
   auto wait_full = [&](int j) {
     mbar_wait(&s.full[j % NSTAGE], (j / NSTAGE) & 1);
   };
   auto issue_scores = [&](int j) {   // S^T = K . q~^T, dP^T = V . dO^T
     const int st = j % NSTAGE;
-    const uint64_t qd = make_desc<DH>(s.q[st]), dd = make_desc<DH>(s.d[st]);
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      Wgmma<ROWS>::template ss<0>(sacc, desc_add(kd, kk * 32),
-                                  desc_add(qd, kk * 32), kk > 0);
+      Wgmma<ROWS>::template ss<0>(sacc, kdesc_tile<DH>(kt, ROWS, kk),
+                                  kdesc_tile<DH>(s.q[st], ROWS, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      Wgmma<ROWS>::template ss<0>(pacc, desc_add(vd, kk * 32),
-                                  desc_add(dd, kk * 32), kk > 0);
+      Wgmma<ROWS>::template ss<0>(pacc, kdesc_tile<DH>(vt, ROWS, kk),
+                                  kdesc_tile<DH>(s.d[st], ROWS, kk), kk > 0);
     wgmma_commit();
   };
   auto issue_grads = [&](int j, const Frags& pf, const Frags& dsf) {
     const int st = j % NSTAGE;
-    const uint64_t qd = make_desc<DH>(s.q[st]), dd = make_desc<DH>(s.d[st]);
 #pragma unroll
     for (int kj = 0; kj < ROWS / 16; ++kj)   // dV += P^T . dO (MN-major)
-      Wgmma<DH>::template rs<1>(dv, pf[kj], desc_add(dd, kj * 16 * DH * 2), 1);
+      Wgmma<OC>::template rs<1>(dv, pf[kj],
+                                mndesc_tile<DH>(s.d[st], ROWS, cs, kj), 1);
 #pragma unroll
     for (int kj = 0; kj < ROWS / 16; ++kj)   // dK += dS^T . q~ (MN-major)
-      Wgmma<DH>::template rs<1>(dk, dsf[kj], desc_add(qd, kj * 16 * DH * 2),
-                                1);
+      Wgmma<OC>::template rs<1>(dk, dsf[kj],
+                                mndesc_tile<DH>(s.q[st], ROWS, cs, kj), 1);
     wgmma_commit();
   };
   auto make_frags = [&](int j, Frags& pf, Frags& dsf) {
@@ -411,8 +450,8 @@ __device__ __forceinline__ void dkv_consumer(const BwdParams& p,
   }
   fence_regs(dk);
   fence_regs(dv);
-  store_rows<DH>(p.dk, bi, head, p.lk, p.h, p.d, r0, dk, 1.f, t4);
-  store_rows<DH>(p.dv, bi, head, p.lk, p.h, p.d, r0, dv, 1.f, t4);
+  store_rows<OC>(p.dk, bi, head, p.lk, p.h, p.d, r0, dk, 1.f, t4, cs * OC);
+  store_rows<OC>(p.dv, bi, head, p.lk, p.h, p.d, r0, dv, 1.f, t4, cs * OC);
 }
 
 template <int DH>
@@ -420,7 +459,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 flash_full_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   DkvSmem<DH>& s = smem_storage<DkvSmem<DH>>(smem_raw);
-  const int k0 = blockIdx.x * BLOCK, head = blockIdx.y, bi = blockIdx.z;
+  constexpr int NCS = DH / span_of<DH>();   // column slices, one a block
+  const int k0 = blockIdx.x / NCS * BLOCK, cs = blockIdx.x % NCS;
+  const int head = blockIdx.y, bi = blockIdx.z;
   const int wg = threadIdx.x / WG;
   const int n_active = k0 + ROWS < p.lk ? 2 : 1;   // consumers with keys < lk
   const int n_qt = (p.lq + ROWS - 1) / ROWS;
@@ -439,23 +480,27 @@ flash_full_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
     if (threadIdx.x == 2 * WG) {
       mbar_expect_tx(&s.res, 2 * BLOCK * DH * 2);
       for (int r = 0; r < BLOCK; r += ROWS) {
-        tma_load_4d(s.k + r * DH, &p.tk, &s.res, 0, head, k0 + r, bi);
-        tma_load_4d(s.v + r * DH, &p.tv, &s.res, 0, head, k0 + r, bi);
+        tma_load_heads<DH>(s.k + r * DH, &p.tk, &s.res, head, k0 + r, bi,
+                           ROWS);
+        tma_load_heads<DH>(s.v + r * DH, &p.tv, &s.res, head, k0 + r, bi,
+                           ROWS);
       }
       const int stats_row = bi * p.h + head;
       for (int j = 0; j < n_qt; ++j) {
         const int st = j % NSTAGE;
         mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(&s.full[st], 2 * ROWS * DH * 2 + 2 * ROWS * 4);
-        tma_load_4d(s.q[st], &p.tq, &s.full[st], 0, head, j * ROWS, bi);
-        tma_load_4d(s.d[st], &p.tdo, &s.full[st], 0, head, j * ROWS, bi);
+        tma_load_heads<DH>(s.q[st], &p.tq, &s.full[st], head, j * ROWS, bi,
+                           ROWS);
+        tma_load_heads<DH>(s.d[st], &p.tdo, &s.full[st], head, j * ROWS, bi,
+                           ROWS);
         tma_load_2d(s.lse[st], &p.tlse, &s.full[st], j * ROWS, stats_row);
         tma_load_2d(s.dlt[st], &p.tdlt, &s.full[st], j * ROWS, stats_row);
       }
     }
   } else {
     setmaxnreg_inc<232>();
-    if (wg < n_active) dkv_consumer<DH>(p, s, wg, k0, head, bi, n_qt);
+    if (wg < n_active) dkv_consumer<DH>(p, s, wg, k0, cs, head, bi, n_qt);
   }
 }
 
@@ -499,7 +544,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_full_bwd_dkv_kernel<DH>
-      <<<dim3((p.lk + BLOCK - 1) / BLOCK, p.h, b), NTHREADS,
+      <<<dim3((p.lk + BLOCK - 1) / BLOCK * (DH / span_of<DH>()), p.h, b),
+         NTHREADS,
          smem_bytes<DkvSmem<DH>>(), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -511,11 +557,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // the caller; q / dout [b, lq, h, *] and k / v [b, lk, h, *] bf16 views
 // read through (batch, row, head) strides in elements, last dimension
 // contiguous; the maps read `dm` columns (d <= dm <= the tile width 16 / 32
-// / 64; dm > d for the wrapper's zero-padded copies), under TMA's rule
+// / 64 / 128; dm > d for the wrapper's zero-padded copies), under TMA's rule
 // (ops/attention.py::full_takes_view).  lse and delta: f32 [b, h, pitch],
 // pitch = lq rounded up to a multiple of 4 (ops/attention.py::stats_pitch),
 // columns < lq read.  dq [b, lq, h, d] and dk / dv [b, lk, h, d]:
-// contiguous bf16 outputs.  dq_scale = bf16(d^-1/2).  Any d in 1..64.
+// contiguous bf16 outputs.  dq_scale = bf16(d^-1/2).  Any d in 1..128
+// (tiles 16 / 32 / 64 / 128).
 extern "C" int odgs_flash_full_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, void* dk, void* dv, int b,
@@ -524,8 +571,8 @@ extern "C" int odgs_flash_full_bwd_bf16(
     long long k_sh, long long v_sb, long long v_sl, long long v_sh,
     long long do_sb, long long do_sl, long long do_sh, void* stream) {
   if (b == 0 || h == 0 || lq == 0 || lk == 0) return 0;
-  const int tile = d <= 16 ? 16 : d <= 32 ? 32 : 64;
-  if (d < 1 || d > 64 || dm < d || dm > tile)
+  const int tile = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  if (d < 1 || d > 128 || dm < d || dm > tile)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.lse = static_cast<const float*>(lse);
@@ -545,6 +592,7 @@ extern "C" int odgs_flash_full_bwd_bf16(
       v_sh, do_sb, do_sl, do_sh, p, s
   if (tile == 16) return launch<16>(ODGS_BWD_ARGS);
   if (tile == 32) return launch<32>(ODGS_BWD_ARGS);
-  return launch<64>(ODGS_BWD_ARGS);
+  if (tile == 64) return launch<64>(ODGS_BWD_ARGS);
+  return launch<128>(ODGS_BWD_ARGS);
 #undef ODGS_BWD_ARGS
 }

@@ -10,8 +10,9 @@
 // Same math:
 //   q/k/v bf16, element (b, row, head, c) at b*sb + row*sl + head*sh + c
 //   (own strides per tensor, last dimension contiguous), any head width
-//   d <= 64, any number of heads; lq query rows, lk keys (k/v may hold
-//   another number of rows than q: subset attention's second half);
+//   d <= 64 (<= 128 with STATS), any number of heads; lq query rows, lk
+//   keys (k/v may hold another number of rows than q: subset attention's
+//   second half);
 //   q~ = bf16(q * scale): `scale` is d^-1/2 * log2(e) already rounded to
 //   bf16 by the wrapper, as #5 forms both in q's dtype (:652-654); the f32
 //   product of two bf16 values is exact, so rounding it once is the bf16
@@ -58,7 +59,8 @@
 //     q tile once, then of 128-key K and V tiles into a ring of NSTAGE
 //     stages, each with a full and an empty mbarrier.  Each tensor is a
 //     4-D map {d, h, rows, b} with the caller's strides read in one-head
-//     boxes [rows, DH]: DH in {16, 32, 64} is the smallest tile >= d, and
+//     boxes [rows, DH]: DH in {16, 32, 64} (and 128 for STATS, below) is
+//     the smallest tile >= d, and
 //     TMA zero-fills the columns >= d (d 48 and 40 in a 64-wide tile, 20
 //     in a 32-wide one) and the rows past lq / lk.  Zero columns add
 //     nothing to q~·Kᵀ, and P·V's columns >= d are never stored.  Views TMA
@@ -91,6 +93,18 @@
 //   scale = bf16(d^-1/2), and q~ is formed in registers as above;
 //   the softmax is natural-base: m is the running max of the f32 scores
 //   s = q~.k, and P = exp2(s * log2 e - m * log2 e) (one FFMA a score).
+// The same function is splash's forward at any head width, so it is also
+// the splash route's serving forward (ops/attention.py::splash_mha, which
+// drops the lse: `attn_impl: splash`, and heads wider than 64, which JAX
+// sends to splash, transformer.py:159-166).  STATS alone takes DH = 128
+// (64 < d <= 128): a tile row is then two 128-byte swizzle spans, stored
+// as two [rows, 64] span tiles (csrc/hopper.cuh, span_of), each loaded by
+// its own TMA box and read by the single-span descriptors; q~.K^T walks
+// the spans along K, and P.V runs one m64n64 product per span on its half
+// of O.  Key tiles are 64 rows at DH = 128, so S (32) and O (64)
+// accumulators with P_hi / P_lo (16 + 16) and q~ (32) stay at 160
+// registers a thread, as at DH = 64 (128-key tiles: 64 + 32 + 32 + 32 +
+// 16); shared memory is q 32 KB + 3 stages x (K + V) 2 x 16 KB.
 // It also writes the base-2 log-sum-exp lse = m * log2 e + log2(l) of every
 // row < lq, f32, into the backward's [b, h, pitch] layout (pitch = lq
 // rounded up to a multiple of 4, ops/attention.py::stats_pitch), for
@@ -111,17 +125,20 @@ using namespace odgs;
 constexpr int WG = 128;          // threads per warpgroup
 constexpr int ROWS = 64;         // q rows per consumer warpgroup
 constexpr int BQ = 2 * ROWS;     // q rows per block
-constexpr int BK = 128;          // keys per stage
+// keys per stage: 128, or 64 for DH = 128 (the accumulators of S and O
+// then take 32 + 64 registers a thread, as 64 + 32 do at DH = 64)
+template <int DH>
+__host__ __device__ constexpr int keys_of() { return DH > 64 ? 64 : 128; }
 constexpr int NSTAGE = 3;
 constexpr int NTHREADS = 3 * WG; // consumers 0 and 1, producer 2
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
-struct FullSmem {
+struct FullSmem {   // span-stored tiles (hopper.cuh, span_of)
   alignas(1024) __nv_bfloat16 q[BQ * DH];
-  alignas(1024) __nv_bfloat16 k[NSTAGE][BK * DH];
-  alignas(1024) __nv_bfloat16 v[NSTAGE][BK * DH];
+  alignas(1024) __nv_bfloat16 k[NSTAGE][keys_of<DH>() * DH];
+  alignas(1024) __nv_bfloat16 v[NSTAGE][keys_of<DH>() * DH];
   uint64_t full[NSTAGE], empty[NSTAGE], qfull;
 };
 
@@ -151,6 +168,7 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
                                               FullSmem<DH>& s, int wg,
                                               int q0, int head, int bi,
                                               int n_kt) {
+  constexpr int BK = keys_of<DH>();
   constexpr int KSTEPS = DH / 16;   // k16 steps of q~.K^T
   constexpr int PSTEPS = BK / 16;   // k16 steps of P.V
   const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
@@ -161,7 +179,7 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
   // q~ A fragments: rows rl (+8), columns 16 kk + 2 t4 (+8); bf16(q*scale).
   mbar_wait(&s.qfull, 0);
   uint32_t qf[KSTEPS][4];
-  load_a_frags<DH>(s.q, rl, t4, qf);
+  load_a_frags_tile<DH>(s.q, BQ, rl, t4, qf);
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
@@ -178,18 +196,16 @@ __device__ __forceinline__ void full_consumer(const FullParams& p,
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   auto issue_s = [&](int st) {
-    const uint64_t kd = make_desc<DH>(s.k[st]);
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      Wgmma<BK>::template rs<0>(sacc, qf[kk], desc_add(kd, kk * 32), kk > 0);
+      Wgmma<BK>::template rs<0>(sacc, qf[kk], kdesc_tile<DH>(s.k[st], BK, kk),
+                                kk > 0);
   };
   auto issue_pv = [&](int st) {
-    const uint64_t vd = make_desc<DH>(s.v[st]);
 #pragma unroll
     for (int kj = 0; kj < PSTEPS; ++kj) {
-      const uint64_t d = desc_add(vd, kj * 16 * DH * 2);
-      Wgmma<DH>::template rs<1>(oacc, phi[kj], d, 1);
-      if (SPLIT) Wgmma<DH>::template rs<1>(oacc, plo[kj], d, 1);
+      mma_mn<DH>(oacc, phi[kj], s.v[st], BK, kj);
+      if (SPLIT) mma_mn<DH>(oacc, plo[kj], s.v[st], BK, kj);
     }
   };
   // The bf16-P variant sums the rounded P, which exists only once to_p has
@@ -364,6 +380,7 @@ flash_full_kernel(const __grid_constant__ FullParams p) {
   FullSmem<DH>& s = smem_storage<FullSmem<DH>>(smem_raw);
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, bi = blockIdx.z;
   const int wg = threadIdx.x / WG;
+  constexpr int BK = keys_of<DH>();
   const int n_active = q0 + ROWS < p.lq ? 2 : 1;   // consumers with rows < lq
   const int n_kt = (p.lk + BK - 1) / BK;
   if (threadIdx.x == 0) {
@@ -380,13 +397,13 @@ flash_full_kernel(const __grid_constant__ FullParams p) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 2 * WG) {
       mbar_expect_tx(&s.qfull, BQ * DH * 2);
-      tma_load_4d(s.q, &p.tq, &s.qfull, 0, head, q0, bi);
+      tma_load_heads<DH>(s.q, &p.tq, &s.qfull, head, q0, bi, BQ);
       for (int j = 0; j < n_kt; ++j) {
         const int st = j % NSTAGE;
         mbar_wait(&s.empty[st], ((j / NSTAGE) & 1) ^ 1);
         mbar_expect_tx(&s.full[st], 2 * BK * DH * 2);
-        tma_load_4d(s.k[st], &p.tk, &s.full[st], 0, head, j * BK, bi);
-        tma_load_4d(s.v[st], &p.tv, &s.full[st], 0, head, j * BK, bi);
+        tma_load_heads<DH>(s.k[st], &p.tk, &s.full[st], head, j * BK, bi, BK);
+        tma_load_heads<DH>(s.v[st], &p.tv, &s.full[st], head, j * BK, bi, BK);
       }
     }
   } else {
@@ -406,6 +423,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   FullParams p;
   p.lse = static_cast<float*>(lse);
   p.pitch = (lq + 3) / 4 * 4;
+  constexpr int BK = keys_of<DH>();
   if (!make_map_heads_bf16<DH>(&p.tq, q, dm, h, lq, b, q_sh, q_sl, q_sb, BQ) ||
       !make_map_heads_bf16<DH>(&p.tk, k, dm, h, lk, b, k_sh, k_sl, k_sb, BK) ||
       !make_map_heads_bf16<DH>(&p.tv, v, dm, h, lk, b, v_sh, v_sl, v_sb, BK))
@@ -469,7 +487,8 @@ extern "C" int odgs_flash_full_fwd_bf16(
 
 // #5s: the same launch with STATS (see the header): scale = bf16(d^-1/2),
 // and lse an f32 [b, h, pitch] buffer (pitch = lq rounded up to a multiple
-// of 4) whose columns < lq are written.  Any d in 1..64.
+// of 4) whose columns < lq are written.  Any d in 1..128 (tiles 16 / 32 /
+// 64 / 128).
 extern "C" int odgs_flash_full_fwd_stats_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int lq, int lk, int h, int d, int dm, float scale, long long q_sb,
@@ -477,8 +496,8 @@ extern "C" int odgs_flash_full_fwd_stats_bf16(
     long long k_sh, long long v_sb, long long v_sl, long long v_sh,
     void* stream) {
   if (b == 0 || lq == 0 || h == 0) return 0;
-  const int tile = d <= 16 ? 16 : d <= 32 ? 32 : 64;
-  if (lk < 1 || d < 1 || d > 64 || dm < d || dm > tile || lse == nullptr)
+  const int tile = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  if (lk < 1 || d < 1 || d > 128 || dm < d || dm > tile || lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ODGS_FULL_ARGS                                                      \
@@ -486,6 +505,7 @@ extern "C" int odgs_flash_full_fwd_stats_bf16(
       k_sh, v_sb, v_sl, v_sh, s, lse
   if (tile == 16) return launch<16, true, false, true>(ODGS_FULL_ARGS);
   if (tile == 32) return launch<32, true, false, true>(ODGS_FULL_ARGS);
-  return launch<64, true, false, true>(ODGS_FULL_ARGS);
+  if (tile == 64) return launch<64, true, false, true>(ODGS_FULL_ARGS);
+  return launch<128, true, false, true>(ODGS_FULL_ARGS);
 #undef ODGS_FULL_ARGS
 }

@@ -5,7 +5,8 @@
 // Shared-memory tiles are [rows, DH] bf16 with DH in {16, 32, 64}: one row
 // is one swizzle span (32, 64 or 128 bytes), written by TMA with the
 // matching swizzle (SWIZZLE_32B / 64B / 128B) and read by wgmma through a
-// descriptor of the same layout type.  Every tile starts 1024-byte aligned,
+// descriptor of the same layout type.  The general route's kernels also
+// take DH = 128, stored as two such [rows, 64] tiles (span_of).  Every tile starts 1024-byte aligned,
 // so the swizzle phase is the row index and the descriptors' base offset
 // is 0.
 
@@ -51,9 +52,22 @@ inline EncodeTiledFn encode_tiled() {
 // Every helper below that takes DH relies on one [rows, DH] bf16 tile row
 // being exactly one swizzle span (2 * DH bytes = 128 / 64 / 32 B): the
 // swizzle, the TMA box and the wgmma descriptors (make_desc) all assume it.
+// A tile of DH = 128 columns (the general route's wide heads) has 256-byte
+// rows, two 128-byte spans: it is stored as two single-span [rows, 64]
+// tiles one after the other (`span_of`, the `*_tile` helpers below), so
+// every single-span helper works on one of them.
 #define ODGS_SINGLE_SPAN(DH)                                                 \
   static_assert((DH) == 16 || (DH) == 32 || (DH) == 64,                      \
                 "a tile row must be exactly one swizzle span: DH 16, 32, 64")
+
+// Columns of one swizzle span of a DH-wide tile: DH itself up to 64, else
+// 64 (DH = 128 is two spans).
+template <int DH>
+__host__ __device__ constexpr int span_of() {
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
+                "tile widths: 16, 32, 64, 128");
+  return DH > 64 ? 64 : DH;
+}
 
 template <int DH>
 constexpr CUtensorMapSwizzle swizzle_of() {
@@ -98,11 +112,13 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int width,
 // dimensions longer than 1 multiples of 16 bytes (the wrapper checks
 // them); the stride of a dimension of extent 1 is never used and is
 // replaced by the packed one.
+// For DH = 128 the box is one span, [box_rows, 64]: a tile takes two
+// loads (tma_load_heads).
 template <int DH>
 inline bool make_map_heads_bf16(CUtensorMap* map, const void* base, int d,
                                 int h, int rows, int b, long long sh,
                                 long long sl, long long sb, int box_rows) {
-  ODGS_SINGLE_SPAN(DH);
+  constexpr int SP = span_of<DH>();
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || d > DH) return false;
   if (h == 1) sh = d;
@@ -112,11 +128,11 @@ inline bool make_map_heads_bf16(CUtensorMap* map, const void* base, int d,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)DH, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)SP, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t one[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle_of<DH>(), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            swizzle_of<SP>(), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -222,6 +238,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A [box_rows, DH] one-head tile of a make_map_heads_bf16<DH> map at
+// (head, row, batch), span by span: span sp (columns 64 sp ..) lands at
+// dst + sp * box_rows * 64.  One load for DH <= 64.
+template <int DH>
+__device__ __forceinline__ void tma_load_heads(__nv_bfloat16* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int head,
+                                               int row, int bi,
+                                               int box_rows) {
+  constexpr int SP = span_of<DH>();
+#pragma unroll
+  for (int sp = 0; sp < DH / SP; ++sp)
+    tma_load_4d(dst + sp * box_rows * SP, map, bar, sp * SP, head, row, bi);
+}
+
 // Synchronise the 128 threads of one warpgroup (ids 1.. are free: 0 is
 // __syncthreads).
 __device__ __forceinline__ void named_barrier_sync(int id) {
@@ -309,6 +340,38 @@ __device__ __forceinline__ uint64_t make_desc(const void* tile) {
 // Descriptor advanced by `bytes` (a multiple of 16).
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
+}
+
+// The span-stored [rows, DH] tiles (DH up to 128; see span_of).
+// K-major descriptor of k16 step kk (columns 16 kk ..) of such a tile.
+template <int DH>
+__device__ __forceinline__ uint64_t kdesc_tile(const __nv_bfloat16* tile,
+                                               int rows, int kk) {
+  constexpr int SP = span_of<DH>(), PER = SP / 16;
+  return desc_add(make_desc<SP>(tile + (kk / PER) * rows * SP),
+                  (kk % PER) * 32);
+}
+
+// MN-major descriptor of span sp at k16 step kj (rows 16 kj ..).
+template <int DH>
+__device__ __forceinline__ uint64_t mndesc_tile(const __nv_bfloat16* tile,
+                                                int rows, int sp, int kj) {
+  constexpr int SP = span_of<DH>();
+  return desc_add(make_desc<SP>(tile + sp * rows * SP), kj * 16 * SP * 2);
+}
+
+// load_a_frags over all spans of a span-stored tile: f[kk] for k16 steps
+// kk of the whole width.
+template <int DH>
+__device__ __forceinline__ void load_a_frags_tile(const __nv_bfloat16* tile,
+                                                  int rows, int row0, int t4,
+                                                  uint32_t (&f)[DH / 16][4]) {
+  constexpr int SP = span_of<DH>();
+#pragma unroll
+  for (int sp = 0; sp < DH / SP; ++sp)
+    load_a_frags<SP>(tile + sp * rows * SP, row0, t4,
+                     *reinterpret_cast<uint32_t(*)[SP / 16][4]>(
+                         &f[sp * SP / 16]));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -451,5 +514,26 @@ struct Wgmma<128> {
           "n"(TB));
   }
 };
+
+// acc (+)= A . B over one k16 step kj of a span-stored [rows, DH] tile B
+// read MN-major (its rows are the reduction axis, its DH columns the
+// product's N): one m64n{span} wgmma per span, each on its slice of the
+// accumulator.  The slices of a DH = 128 accumulator hold n8 tiles 8 sp ..
+// 8 sp + 7, the layout one m64n128 product would give, so the epilogues
+// read acc[4 n + e] as column 8 n + 2 t4 + (e & 1) for any DH.  Two n64
+// products, not one n128, because an MN-major operand two spans wide needs
+// its own leading offset (make_desc's comment).
+template <int DH>
+__device__ __forceinline__ void mma_mn(float (&acc)[DH / 2],
+                                       const uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int rows,
+                                       int kj) {
+  constexpr int SP = span_of<DH>();
+#pragma unroll
+  for (int sp = 0; sp < DH / SP; ++sp)
+    Wgmma<SP>::template rs<1>(
+        *reinterpret_cast<float(*)[SP / 2]>(&acc[sp * SP / 2]), a,
+        mndesc_tile<DH>(tile, rows, sp, kj), 1);
+}
 
 }  // namespace odgs

@@ -78,7 +78,7 @@ class DGSDenoiser(nn.Module):
                  patch_size: int = 8, n_gaussians: int = 2,
                  dim_heads: int = 64, num_layers: int = 24,
                  ray_pe_type: str = "relative_plk",
-                 hard_pixelalign: bool = True,
+                 hard_pixelalign: bool = True, clip_xyz: bool = True,
                  gaussians_sh_degree: int = 0, rel_depth_scale: float = 1.8,
                  range_setting_near: float = 0.0,
                  range_setting_far: float = 500.0, dtype=torch.float32,
@@ -94,6 +94,9 @@ class DGSDenoiser(nn.Module):
         self.n_gaussians = n_gaussians
         self.ray_pe_type = ray_pe_type
         self.hard_pixelalign = hard_pixelalign
+        # the [-1, 1] clamp of the pixel-aligned points under training=True
+        # on the object PE (JAX denoiser.py:73, 202-203)
+        self.clip_xyz = clip_xyz
         self.sh_degree = gaussians_sh_degree
         self.rel_depth_scale = rel_depth_scale
         self.range_setting_near = range_setting_near
@@ -157,8 +160,10 @@ class DGSDenoiser(nn.Module):
                 training: bool = False):
         """images [b, v, 3, h, w] in [0, 1] (view 0 = clean condition);
         ray_o / ray_d [b, v, 3, h, w] world rays (unit ray_d); t [b].
-        `training` only refuses `quant_int8` (JAX denoiser.py:168): like
-        the reference, the systems never pass it.
+        `training` refuses `quant_int8` (JAX denoiser.py:168) and, with
+        `clip_xyz` on the relative_plk PE, clamps the pixel-aligned points
+        to [-1, 1] (:202-203); like the reference, the systems never pass
+        it.
 
         Returns (Gaussians with N = n_gaussians + v*h*w, per-pixel
         depth-xyz [b, v, 3, h, w])."""
@@ -210,6 +215,8 @@ class DGSDenoiser(nn.Module):
                 depth = ((2.0 * torch.sigmoid(raw_depth) - 1.0)
                          * self.rel_depth_scale + o_dot_d)
                 pix_pts = ray_o + depth * ray_d
+                if self.clip_xyz and training:
+                    pix_pts = pix_pts.clamp(-1.0, 1.0)
             else:
                 depth = (torch.sigmoid(raw_depth)
                          * (self.range_setting_far - self.range_setting_near)

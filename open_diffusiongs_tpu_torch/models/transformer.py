@@ -41,7 +41,9 @@ Training through the general route: JAX differentiates it through splash
 on `q * d^-1/2` (transformer.py:116-152); the port runs that training
 function on its own kernels, `FlashFullMHA` (ops/attention.py: the stats
 forward #5s and the backward #5b), whenever grad mode is on and an input
-requires grad, and #5's serving forward otherwise.
+requires grad, and #5's serving forward otherwise.  Heads wider than 64
+and `attn_impl: splash` take splash's function in serving too
+(transformer.py:159-166; ops/attention.py::splash_attention, d <= 128).
 
 Sequence parallelism (transformer.py:192-200, 370-373, 525-551): with a
 `seq` mesh of sp > 1 ranks (parallel/mesh.py), DiTStack pads the token axis
@@ -68,9 +70,6 @@ Pipeline parallelism (transformer.py:611-642): with a `pipe` mesh of
 pp > 1 stages, DiTStack holds its stage's num_layers / pp blocks and runs
 them through parallel/pipeline.py::pipeline_apply (GPipe microbatches,
 in training and under no_grad); every stage returns the whole output.
-
-Left out of this port (ROADMAP Queue 1): splash as an `attn_impl` of its
-own (a JAX library kernel).
 """
 
 from __future__ import annotations
@@ -82,8 +81,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.attention import flash_attention, flash_full_attention, \
-    plan_packed
+from ..ops.attention import FULL_MAX_D, flash_attention, \
+    flash_full_attention, plan_packed, splash_attention
 from ..ops.quant import QuantLinear
 from ..parallel.pipeline import pipeline_apply
 from ..parallel.ring import gather_seq, ring_attention
@@ -200,20 +199,23 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     impl: str = "auto") -> torch.Tensor:
-    """q/k/v [b, l, h, d] (transformer.py:155-167).  'auto'/'flash':
-    ops/attention.py::flash_full_attention, which trains through
+    """q/k/v [b, l, h, d] (transformer.py:155-167).  'auto'/'flash' with
+    d <= 64: ops/attention.py::flash_full_attention, which trains through
     `FlashFullMHA` (#5s + #5b, JAX's splash-differentiated function) when
     grad mode is on and an input requires grad and serves through #5
-    otherwise (kernels on CUDA tensors, plain twins on CPU ones); 'xla':
-    exact plain attention; 'splash' raises."""
+    otherwise; 'splash', and 'auto'/'flash' with d > 64 (JAX: "the flash
+    kernel assumes d <= 64"): ops/attention.py::splash_attention, splash's
+    function on q·d^-1/2 in training and serving alike (#5s + #5b, or #5s
+    without its lse), up to d = 128; kernels on CUDA tensors, plain twins
+    on CPU ones.  'xla': exact plain attention."""
     impl = resolve_attn_impl(impl)
+    if impl == "flash" and q.shape[-1] > FULL_MAX_D:
+        impl = "splash"
     if impl == "splash":
-        raise NotImplementedError(
-            "attn_impl 'splash' is a JAX library kernel the port does not "
-            "reproduce (ROADMAP Queue 1 item 7)")
+        return splash_attention(q, k, v)
     if impl == "xla":
         return dot_product_attention(q, k, v)
-    return flash_full_attention(q, k, v)   # raises for d > 64 (JAX: splash)
+    return flash_full_attention(q, k, v)
 
 
 def subset_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -38,6 +38,14 @@ not as #5's serving forward, bf16(q·bf16(d^-½·log₂e)) (`_full_prescaled_q`,
 0.18 % apart at d = 64); `flash_full_attention` under no_grad runs #5, as
 JAX keeps that primal for inference.
 
+The splash route (`splash_attention`): JAX sends every head wider than 64
+and every `attn_impl: splash` to splash on `q * d^-1/2` in training and
+inference alike (transformer.py:159-166).  That is the training function
+above, so under grad it is `FlashFullMHA` and under no_grad `splash_mha`,
+#5s's kernel without its lse (never #5's serving pre-scale).  #5s and #5b
+take heads up to 128 (a DH = 128 tile, two 128-byte swizzle spans a row);
+#5 keeps JAX's d <= 64.
+
 The JAX DiT pads the token axis once around the whole stack to a block
 multiple (transformer.py:525-538, plan_packed :125-139: 4098 -> 4608 at
 256^2).  The port's kernels mask the ragged tile themselves, so the port's
@@ -71,8 +79,11 @@ LAUNCHES_FULL = 0    # flash_full_mha kernel launches (the general route)
 LAUNCHES_MHA_FULL = 0  # mha_full (bench variant) kernel launches
 LAUNCHES_FULL_STATS = 0  # flash_full_mha_stats (#5s) kernel launches
 LAUNCHES_FULL_BWD = 0    # flash_full_mha_bwd (#5b) launches (dQ + dK/dV)
+LAUNCHES_SPLASH = 0      # splash_mha (#5s, its lse dropped) launches
 
 PACKED_DH = (16, 32, 64)   # head widths of the packed kernels
+FULL_MAX_D = 64            # widest head of #5 (JAX's flash_full_mha)
+SPLASH_MAX_D = 128         # widest head of #5s / #5b (the splash route)
 SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
 
 
@@ -478,8 +489,9 @@ def flash_attention(qkv: torch.Tensor, *, num_heads: int, l_real: int
 
 
 # ---------------------------------------------------------------------------
-# The general route: [b, l, h, d], any d <= 64 (JAX flash_full_mha), and the
-# bench variant mha_full of tools/bench_attn2.py.
+# The general route: [b, l, h, d], any d <= 64 (JAX flash_full_mha), its
+# training pair and the splash route (d <= 128), and the bench variant
+# mha_full of tools/bench_attn2.py.
 # ---------------------------------------------------------------------------
 
 
@@ -498,19 +510,23 @@ def _full_prescaled_q(q: torch.Tensor) -> torch.Tensor:
                             dtype=q.dtype, device=q.device)
 
 
-def _check_full(q, k, v):
+def _check_full(q, k, v, max_d: int = FULL_MAX_D):
     """q [b, l, h, d] and k/v [b, lk, h, d] (lk may differ: the second half
-    of subset attention); returns (b, l, lk, h, d)."""
+    of subset attention), d <= max_d; returns (b, l, lk, h, d)."""
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or (q.shape[0], *q.shape[2:]) != (k.shape[0], *k.shape[2:])
             or k.shape[1] == 0):
         raise ValueError(f"q/k/v must be [b, l, h, d] / [b, lk, h, d], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if not 1 <= q.shape[-1] <= 64:
-        raise ValueError(f"flash_full_mha: head dim {q.shape[-1]}: the kernel "
-                         f"takes d <= 64 (JAX sends wider heads to splash, "
-                         f"which the port does not have)")
+    if not 1 <= q.shape[-1] <= max_d:
+        if max_d == FULL_MAX_D:
+            raise ValueError(f"flash_full_mha: head dim {q.shape[-1]}: the "
+                             f"kernel takes d <= 64 (JAX sends wider heads "
+                             f"to splash: splash_attention)")
+        raise ValueError(f"head dim {q.shape[-1]}: the splash route's "
+                         f"kernels take d <= {SPLASH_MAX_D} (wider heads: "
+                         f"ROADMAP, Limits, not faults)")
     b, l, h, d = q.shape
     return b, l, k.shape[1], h, d
 
@@ -531,9 +547,10 @@ def flash_full_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def full_tile_width(d: int) -> int:
-    """The general-route kernel's tile width for a head width d <= 64: the
-    smallest of 16, 32 and 64 that holds it (one swizzle span a row)."""
-    return 16 if d <= 16 else 32 if d <= 32 else 64
+    """The general-route kernels' tile width for a head width d <= 128: the
+    smallest of 16, 32, 64 and 128 that holds it (one swizzle span a row,
+    two at 128)."""
+    return 16 if d <= 16 else 32 if d <= 32 else 64 if d <= 64 else 128
 
 
 def full_takes_view(data_ptr: int, shape, strides, itemsize: int) -> bool:
@@ -635,8 +652,9 @@ def flash_full_mha_stats_ref(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of #5s: q~ = `_train_prescaled_q(q)`, f32
     scores s = q~·kᵀ, a natural-base softmax over all keys (taken as
     2^(s·log2 e - m)) and P·V in f32.  Returns o [b, l, h, d] in q's dtype
-    and the base-2 lse [b, h, l] f32, log2 Σ_keys 2^(s·log2 e)."""
-    _check_full(q, k, v)
+    and the base-2 lse [b, h, l] f32, log2 Σ_keys 2^(s·log2 e).  Any
+    d <= 128."""
+    _check_full(q, k, v, SPLASH_MAX_D)
     s = torch.einsum("blhd,bmhd->bhlm", _train_prescaled_q(q).float(),
                      k.float()) * LOG2E
     m = s.amax(dim=-1, keepdim=True)
@@ -647,7 +665,7 @@ def flash_full_mha_stats_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check_full_bwd(q, k, v, o, do, lse):
-    b, l, lk, h, d = _check_full(q, k, v)
+    b, l, lk, h, d = _check_full(q, k, v, SPLASH_MAX_D)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o / do must be {tuple(q.shape)}, got "
                          f"{tuple(o.shape)}, {tuple(do.shape)}")
@@ -676,7 +694,7 @@ def flash_full_mha_bwd_ref(q, k, v, o, do, lse):
 
 def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """#5s: the general route's training forward on q [b, l, h, d] and k/v
-    [b, lk, h, d] (any d <= 64, lk may differ from l).  Returns o, a new
+    [b, lk, h, d] (any d <= 128, lk may differ from l).  Returns o, a new
     contiguous [b, l, h, d] in q's dtype, and the base-2 lse [b, h, l] f32
     (on the card a view of the backward's [b, h, stats_pitch(l)] layout).
 
@@ -685,12 +703,21 @@ def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     as `flash_full_mha` reads them).  It records no gradient: see
     `FlashFullMHA`."""
     global LAUNCHES_FULL_STATS
-    b, l, lk, h, d = _check_full(q, k, v)
+    _check_full(q, k, v, SPLASH_MAX_D)
     if q.device.type == "cpu":
         return flash_full_mha_stats_ref(q, k, v)
     _refuse_grad("flash_full_mha_stats", q, k, v, route=FULL_ROUTE)
-    _check_bf16_cuda("flash_full_mha_stats", dict(q=q, k=k, v=v),
-                     aligned=False)
+    out = _launch_stats("flash_full_mha_stats", q, k, v)
+    LAUNCHES_FULL_STATS += 1
+    return out
+
+
+def _launch_stats(what: str, q, k, v):
+    """One launch of csrc/flash_full_fwd.cu's STATS forward (the training
+    function) on bf16 CUDA views.  Returns o [b, l, h, d] and the lse
+    [b, h, l], a view of its [b, h, stats_pitch(l)] f32 buffer."""
+    b, l, lk, h, d = _check_full(q, k, v, SPLASH_MAX_D)
+    _check_bf16_cuda(what, dict(q=q, k=k, v=v), aligned=False)
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, stats_pitch(l)), dtype=torch.float32,
                       device=q.device)
@@ -700,8 +727,7 @@ def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         lse.data_ptr(), b, l, lk, h, d, dm, _train_scale(d, q.dtype),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_full_mha_stats")
-    LAUNCHES_FULL_STATS += 1
+    _build.check(err, what)
     return out, lse[..., :l]
 
 
@@ -734,7 +760,7 @@ def flash_full_mha_bwd(q, k, v, o, do, lse):
     the output cotangent do, in the primal dtypes.
 
     CPU tensors: `flash_full_mha_bwd_ref`.  CUDA tensors: the two sm_90a
-    kernels of csrc/flash_full_bwd.cu (bf16, any d <= 64).  q~ is formed
+    kernels of csrc/flash_full_bwd.cu (bf16, any d <= 128).  q~ is formed
     here once (`_train_prescaled_q`, as the forward rounds it) and
     delta = rowsum(dO ∘ O) in plain torch, as for the packed route; views
     TMA cannot address go to the kernels as zero-padded copies."""
@@ -790,6 +816,44 @@ def flash_full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                     or v.requires_grad):
         return FlashFullMHA.apply(q, k, v)
     return flash_full_mha(q, k, v)
+
+
+SPLASH_ROUTE = "splash_attention (FlashFullMHA)"
+
+
+def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> torch.Tensor:
+    """The splash route's serving forward on q [b, l, h, d] and k/v
+    [b, lk, h, d], any d <= 128: JAX's `_splash_attention(q * d^-1/2, k,
+    v)` (transformer.py:159-166), i.e. the training function of
+    `flash_full_mha_stats` without its lse.  Returns a new contiguous
+    [b, l, h, d] tensor in q's dtype.
+
+    CPU tensors: `flash_full_mha_stats_ref`'s output.  CUDA tensors:
+    csrc/flash_full_fwd.cu's STATS forward, its lse dropped (the training
+    pre-scale `_train_scale`, not #5's `_full_scale`); no gradient."""
+    global LAUNCHES_SPLASH
+    _check_full(q, k, v, SPLASH_MAX_D)
+    if q.device.type == "cpu":
+        return flash_full_mha_stats_ref(q, k, v)[0]
+    _refuse_grad("splash_mha", q, k, v, route=SPLASH_ROUTE)
+    out, _ = _launch_stats("splash_mha", q, k, v)
+    LAUNCHES_SPLASH += 1
+    return out
+
+
+def splash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> torch.Tensor:
+    """The splash route on [b, l, h, d] (`attn_impl: splash`, and any head
+    wider than 64: transformer.py:159-166, splash on q·d^-1/2 in q's dtype,
+    differentiated by splash's own backward): `FlashFullMHA` (#5s + #5b)
+    when grad mode is on and an input requires grad, otherwise
+    `splash_mha`.  Heads wider than 128 raise (ROADMAP, "Limits, not
+    faults")."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashFullMHA.apply(q, k, v)
+    return splash_mha(q, k, v)
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:

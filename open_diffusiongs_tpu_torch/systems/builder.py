@@ -30,8 +30,8 @@ _SHAPE_MODEL_MAP = {
     "num_layers": "num_layers",
     "ray_pe_type": "ray_pe_type",
     "hard_pixelalign": "hard_pixelalign",
-    # the [-1, 1] xyz clamp of training mode (sampling never applies it)
-    "clip_xyz": None,
+    # the [-1, 1] xyz clamp of training=True (no system passes it)
+    "clip_xyz": "clip_xyz",
     "gaussians_sh_degree": "gaussians_sh_degree",
     "range_setting_near": "range_setting_near",
     "range_setting_far": "range_setting_far",

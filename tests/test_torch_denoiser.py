@@ -203,10 +203,15 @@ def test_general_and_dh16_denoisers_match_jax(width, dim_heads, packed):
     np.testing.assert_allclose(img_xyz.numpy(), np.asarray(jxyz), **TOL)
 
 
-@pytest.mark.parametrize("impl", ["auto", "xla"])
-def test_subset_attention_matches_jax(impl):
+@pytest.mark.parametrize("impl", ["auto", "xla", "splash"])
+def test_subset_attention_matches_jax(impl, monkeypatch):
     """Queries [0:s] see keys [0:s], queries [s:] see all
-    (tests/test_attention.py:205-227); s >= l is full attention."""
+    (tests/test_attention.py:205-227); s >= l is full attention.  'splash'
+    against JAX's splash route, its `_splash_attention` replaced by exact
+    XLA attention on the pre-scaled q as tests/test_attention.py:100-114
+    does on the CPU."""
+    monkeypatch.setattr(jtr, "_splash_attention", lambda q_, k_, v_: (
+        jax.nn.dot_product_attention(q_ * q_.shape[-1] ** 0.5, k_, v_)))
     rng = np.random.default_rng(2)
     q, k, v = (rng.normal(size=(1, 24, 2, 16)).astype(np.float32)
                for _ in range(3))
@@ -214,11 +219,18 @@ def test_subset_attention_matches_jax(impl):
     for s_ in (9, 24):
         want = np.asarray(jtr.subset_attention(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), subset_size=s_,
-            impl="xla"))
+            impl="splash" if impl == "splash" else "xla"))
         got = ttr.subset_attention(tq, tk, tv, subset_size=s_, impl=impl)
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttr.fused_attention(tq, tk, tv, "splash")
+
+
+@pytest.mark.parametrize("impl", ["auto", "flash", "splash"])
+def test_heads_wider_than_128_raise(impl):
+    """The splash route takes heads up to 128 (tests/test_torch_wide_heads.py
+    holds 80, 96 and 128 against JAX); d = 160 raises."""
+    x = torch.zeros(1, 6, 2, 160)
+    with pytest.raises(ValueError, match="d <= 128"):
+        ttr.fused_attention(x, x, x, impl)
 
 
 def _jax_route(width, dim_heads, qk_norm):

@@ -348,3 +348,87 @@ def test_overfit_one_batch():
     assert np.isfinite(losses).all()
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     assert last < first * 0.5, (first, last)
+
+
+def test_ten_train_steps_match_jax_train_step():
+    """Ten steps of the recipe's optimizer (configs/diffusionGS_rel.yaml at
+    the convergence protocol's lr 5e-5: AdamW, cosine, clip 0.5) from
+    bridged params at TINY width (16², 2 + 2 views), steps 146-155 (across
+    the loss weights' switch at 150), a new batch each step, JAX's noise
+    and t fed through `train_loss`'s hooks, against JAX's `train_step`:
+    every step's loss within rtol 2e-4 / atol 2e-5; each parameter's move
+    over the ten steps within 1e-3 of JAX's in L2 norm, and the EMA's move
+    within 1e-3 plus the f32 rounding of ten EMA updates.  The EMA decays
+    at 0.9, not the recipe's 0.9999: there its ten moves are 1e-4 of the
+    params', at the f32 ulp of the EMA itself, where no comparison sees
+    them.  Not elementwise: Adam's first steps move every element by about
+    lr whatever its gradient's size, so an element whose gradient sits at
+    the f32 noise of the rest (the single step's gradients agree to
+    rel-max 1e-3, test above) moves by +-lr on that noise in either
+    package."""
+    cfg = load_config(CONFIG, cli_args=["system.optimizer.args.lr=5.e-5"],
+                      makedirs=False)
+    ocfg = builder.build_optimizer_config(cfg.system, cfg.trainer)
+    assert ocfg.lr == 5e-5 and ocfg.grad_clip == 0.5
+    start, n, ema, res, v = 146, 10, 0.9, 16, 2
+    jsys = JaxSystem(JaxSystemConfig(
+        use_lpips=False, shape_model=dict(TINY, dtype=jnp.float32,
+                                          remat=False),
+        raster=jrz.RasterizeConfig(**RASTER)))
+    params = jsys.init_params(jax.random.PRNGKey(0), res, res, v=v)
+    tx = jts.make_optimizer(jbuilder.build_optimizer_config(cfg.system,
+                                                            cfg.trainer))
+    jstate = jts.init_train_state(params, tx, ema_decay=ema)._replace(
+        step=jnp.int32(start))
+    jstep = jts.make_train_step(jsys.train_loss, tx, ema_decay=ema,
+                                donate=False)
+    system = _port_system()
+    system.model.load_state_dict(state_dict_from_flax(
+        jax.device_get(params)), strict=True)
+    named = dict(system.model.named_parameters())
+    start_params = {k: p.detach().clone() for k, p in named.items()}
+    opt = tts.make_optimizer(ocfg, named.items())
+    state = tts.init_train_state(named, opt, ema_decay=ema)
+    state.step = start
+    rng = jax.random.PRNGKey(3)
+    draws = {}
+    pstep = tts.make_train_step(lambda batch, step: system.train_loss(
+        batch, step, noise=draws[step][0], t=draws[step][1]), opt,
+        ema_decay=ema)
+    data = np.random.default_rng(7)
+    for i in range(n):
+        batch = _batch(data, res=res, v=v)
+        # train_step folds the step into the key, train_loss splits it
+        # (object_system.py:168-170)
+        rng_noise, rng_t = jax.random.split(jax.random.fold_in(
+            rng, start + i))
+        draws[start + i] = (
+            torch.from_numpy(np.array(jax.random.normal(
+                rng_noise, batch["rgbs_input"].shape, jnp.float32))),
+            torch.from_numpy(np.array(jax.random.randint(
+                rng_t, (1,), 0, 1000))).long())
+        jstate, jmetrics = jstep(jstate, {k: jnp.asarray(x)
+                                          for k, x in batch.items()}, rng)
+        state, metrics = pstep(state, _torch_batch(batch))
+        np.testing.assert_allclose(float(metrics["loss"]),
+                                   float(jmetrics["loss"]), rtol=2e-4,
+                                   atol=2e-5, err_msg=f"step {start + i}")
+    assert state.step == int(jstate.step) == start + n
+    want = state_dict_from_flax(jax.device_get(jstate.params))
+    want_ema = state_dict_from_flax(jax.device_get(jstate.ema_params))
+    assert set(want) == set(state.params) == set(state.ema_params)
+    eps = torch.finfo(torch.float32).eps
+    for k, ref in want.items():
+        moved = state.params[k].detach() - start_params[k]
+        ref_moved = ref - start_params[k]
+        err = float((moved - ref_moved).norm() / ref_moved.norm())
+        assert err <= 1e-3, f"{k}: moves {err:.3g} apart in L2"
+        # the EMA's moves: 1e-3 in L2, plus each package's rounding of
+        # the EMA (half an ulp an element a step) over the n steps
+        ema_moved = state.ema_params[k] - start_params[k]
+        ref_ema_moved = want_ema[k] - start_params[k]
+        assert float(ref_ema_moved.norm()) > 0, k
+        err = float((ema_moved - ref_ema_moved).norm())
+        bar = (1e-3 * float(ref_ema_moved.norm())
+               + n * eps * float(want_ema[k].norm()))
+        assert err <= bar, f"ema {k}: moves {err:.3g} apart, bar {bar:.3g}"
