@@ -275,7 +275,9 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   one-extent launch; one
                   ring step of the 512^2 sp = 2 shape timed;
                b. two ranks sharing the card over gloo (spawned
-                  processes, a file rendezvous): (i) DDP at dp = 2 on
+                  processes, a file rendezvous), the DiT at 12 of its 24
+                  layers (PAR_DEPTH: these check ranks, not depth): (i)
+                  DDP at dp = 2 on
                   configs/diffusionGS_rel.yaml at 256^2, 2 samples a rank,
                   against the one-process b = 4 step on the same batch
                   and draws (rank 0 runs it first): loss rel 1e-3,
@@ -301,21 +303,24 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   as two processes sharing one card, not as scaling.
   18. tensor and pipeline parallelism, serving over data ranks: two ranks
       sharing the card over gloo (spawned, `parallel18_rank`), on
-      configs/diffusionGS_rel.yaml at 256^2, b = 4, against the
-      one-process step and an f32 step (rank 0 runs both first):
+      configs/diffusionGS_rel.yaml at 256^2 with 12 of its 24 DiT layers
+      (PAR_DEPTH, as in 17b), b = 4, against the one-process step and an
+      f32 step (rank 0 runs both first):
                i. tp = 2: loss rel 1e-4; the gradients and the update
                   (every rank's part put together) no further from the f32
                   step than the one-process step is, beyond 1e-2 (17b's
-                  yardstick); per rank 48 #1s and 24 #3 a step on 8 heads;
+                  yardstick); per rank 2·layers #1s and layers #3 a step
+                  on 8 heads;
                   the bytes summed over `model` a step equal to 6 x layers
                   [4, 4098, 1024] bf16 tensors; parameter and Adam moment
                   bytes per rank;
-               ii. pp = 2 (12 layers a stage, two microbatches of 2): the
-                  same gates, 48 #1s and 24 #3 per rank a step;
+               ii. pp = 2 (6 layers a stage, two microbatches of 2): the
+                  same gates, 2·2·6 #1s and 2·6 #3 per rank a step;
                iii. dp = 2 serving: DiffusionGSPipeline.batch(mesh=) of
                   two images, each element's renders >= 50 dB PSNR against
                   the one-process batch of both (xyz rel-max and the
-                  bit-equal share printed); 720 #1 and 91 #2 per rank;
+                  bit-equal share printed); 30·layers #1 and 91 #2 per
+                  rank;
                   both ranks return the same whole list;
                each case's seconds per step beside the one-process step,
                labelled as two processes sharing one card, not as
@@ -352,19 +357,21 @@ Phases, one summary line each (every failure raises and exits non-zero):
                the train step of each training config
                (configs/diffusionGS_rel.yaml, _rel_512, _scene, _scene_512)
                at its own batch_size (each fits 80 GB: --recipe-memory),
-               diffusionGS_scene.yaml at all 24 DiT layers, the others
-               at 12 (RECIPE_LAYERS),
+               both scene recipes at all 24 DiT layers, the object
+               recipes at 12 (RECIPE_LAYERS),
                training resolution and views (4 + 6 rendered objects, 4 + 3 + 4
                = 7 rendered scene frames), with
                system.use_lpips=true system.allow_random_lpips=true (the
                random-frozen VGG16 of lpips_init_params): from step 151
                (lambda_lpips 0.5 for objects, 0.1 for scenes), 1 warm-up
-               + 2 timed steps (RECIPE_STEPS) + 1 profiled (device ms);
+               + 2 timed steps (RECIPE_STEPS) + 1 profiled (device ms),
+               every step's global gradient norm finite (phase_train);
                s/step, device
                ms, the idle share, the "lpips" range's device ms (CUDA
                events at its edges, the timed steps' median), peak
                memory, b configured beside b run; launches
-               equal 48 #1s / 24 #3 / b·views #2 / b·views #4 a step; the
+               equal 2·layers #1s / layers #3 / b·views #2 / b·views #4
+               a step; the
                LPIPS term alone (forward + the render's backward) timed
                by CUDA events on the step's shapes.  On the object
                recipe's batch: LPIPS on the card against the CPU on 8
@@ -440,6 +447,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "diffusionGS_rel.yaml")
@@ -1222,6 +1230,41 @@ def train_batch(torch, dev, b: int, res: int, sup_views: int = N_VIEWS):
     }
 
 
+def train_setup(torch, dev, config=CONFIG, overrides=(),
+                sup_views: int = N_VIEWS):
+    """The train step of `config` (+ dotlist `overrides`) as phase_train
+    runs it: the system from seed 0, AdamW and an EMA from step 151, the
+    step's noise and t from a generator seeded 7, and the in-memory batch
+    of the config's per-device batch_size at its training_res.  Returns a
+    namespace (system, params, optimizer, state, gen, step, batch,
+    batch_size, res)."""
+    from open_diffusiongs_tpu_torch.parallel.train_step import (
+        init_train_state, make_optimizer, make_train_step)
+    from open_diffusiongs_tpu_torch.systems.builder import (
+        build_optimizer_config, build_system)
+    from open_diffusiongs_tpu_torch.utils.config import load_config
+    # no LPIPS weights ship with the repo (as bench.py:108 runs it)
+    cfg = load_config(config, cli_args=["system.use_lpips=false",
+                                        *overrides], makedirs=False)
+    batch_size, res = cfg.data["batch_size"], cfg.data["training_res"][0]
+    system = build_system(cfg.system_type, cfg.system, device=dev)
+    system.init_params(torch.Generator(device=dev).manual_seed(0))
+    system.load_pretrained()
+    params = dict(system.model.named_parameters())
+    opt_cfg = build_optimizer_config(cfg.system, cfg.trainer)
+    optimizer = make_optimizer(opt_cfg, params.items())
+    state = init_train_state(params, optimizer, ema_decay=0.9999)
+    state.step = TRAIN_START_STEP
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step = make_train_step(
+        lambda batch, s: system.train_loss(batch, s, generator=gen),
+        optimizer, ema_decay=0.9999)
+    batch = train_batch(torch, dev, batch_size, res, sup_views)
+    return types.SimpleNamespace(
+        system=system, params=params, optimizer=optimizer, state=state,
+        gen=gen, step=step, batch=batch, batch_size=batch_size, res=res)
+
+
 def phase_train(torch, dev, label="8 train path", config=CONFIG,
                 overrides=(), profile=True, loaded=None,
                 sup_views: int = N_VIEWS, after=None,
@@ -1237,36 +1280,19 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     away).  `after(system, batch)`, when given, runs last, its result
     under "after"."""
     from open_diffusiongs_tpu_torch.ops import attention, blend_kernel
-    from open_diffusiongs_tpu_torch.parallel.train_step import (
-        init_train_state, make_optimizer, make_train_step)
-    from open_diffusiongs_tpu_torch.systems.builder import (
-        build_optimizer_config, build_system)
-    from open_diffusiongs_tpu_torch.utils.config import load_config
-    # no LPIPS weights ship with the repo (as bench.py:108 runs it)
-    cfg = load_config(config, cli_args=["system.use_lpips=false",
-                                        *overrides], makedirs=False)
-    batch_size, res = cfg.data["batch_size"], cfg.data["training_res"][0]
-    system = build_system(cfg.system_type, cfg.system, device=dev)
-    system.init_params(torch.Generator(device=dev).manual_seed(0))
-    system.load_pretrained()
-    model = system.model
-    params = dict(model.named_parameters())
+    run = train_setup(torch, dev, config, overrides, sup_views)
+    system, model, params = run.system, run.system.model, run.params
+    optimizer, state, train_step = run.optimizer, run.state, run.step
+    batch, batch_size, res = run.batch, run.batch_size, run.res
     for name, value in (loaded or {}).items():
         if not torch.equal(params[name], value):
             raise AssertionError(f"{name} was not loaded by the config's "
                                  f"weight bootstraps")
-    opt_cfg = build_optimizer_config(cfg.system, cfg.trainer)
-    optimizer = make_optimizer(opt_cfg, params.items())
-    state = init_train_state(params, optimizer, ema_decay=0.9999)
-    state.step = TRAIN_START_STEP
-    gen = torch.Generator(device=dev).manual_seed(7)
-    train_step = make_train_step(
-        lambda batch, step: system.train_loss(batch, step, generator=gen),
-        optimizer, ema_decay=0.9999)
-    batch = train_batch(torch, dev, batch_size, res, sup_views)
 
-    state, _ = train_step(state, batch)                    # warm-up
-    torch.cuda.synchronize()
+    state, m = train_step(state, batch)                    # warm-up
+    # every step's global gradient norm, read after the step (the clip
+    # would carry a non-finite one into every parameter)
+    grad_norms = {"warm-up": float(m["grad_norm"])}
     watch = ["transformer.0.attn.qkv.weight", "upsampler.linear.weight",
              "image_token_decoder.linear.weight"]
     before = {k: params[k].detach().clone() for k in watch}
@@ -1339,8 +1365,11 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
     t_profile = time.perf_counter()
     if profile:
         # device time of one more step, and the kernels' parts of it
+        profiled = []
         by_kernel = device_ms_by_kernel(
-            torch, lambda: train_step(state, batch), iters=1, warm_up=False)
+            torch, lambda: profiled.append(train_step(state, batch)[1]),
+            iters=1, warm_up=False)
+        grad_norms["profiled"] = float(profiled[0]["grad_norm"])
         out.update(device_ms_per_step=sum(by_kernel.values()),
                    blend_fwd_device_ms_per_step=kernel_ms(
                        by_kernel, "blend_fwd_kernel"),
@@ -1357,9 +1386,15 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
         out["after"] = after(system, batch)
         out.update(profile_seconds=t_after - t_profile,
                    after_seconds=time.perf_counter() - t_after)
+    grad_norms["timed"] = [s["grad_norm"] for s in steps]
+    out["grad_norms"] = grad_norms
     print(f"[{label}] {json.dumps(out)}", flush=True)
     if not all(torch.isfinite(torch.tensor(s["loss"])) for s in steps):
         raise AssertionError("non-finite training loss")
+    norms = [grad_norms["warm-up"], *grad_norms["timed"],
+             *([grad_norms["profiled"]] if profile else [])]
+    if not all(math.isfinite(n) for n in norms):
+        raise AssertionError(f"non-finite global gradient norm: {norms}")
     if not all(torch.isfinite(p).all() for p in params.values()):
         raise AssertionError("non-finite parameters after training")
     if not min(qkv_grad_norms) > 0:
@@ -3496,6 +3531,9 @@ PAR_SURE = 0.1               # the update is compared where |g| >= 0.1 of
 #                              move an element by ≈ lr·sign(g); where g is
 #                              within bf16 noise of 0 the sign is noise)
 PAR_TIMEOUT = 420         # 17b took ~110 s of command (H100, 700 W)
+# 17b and 18 check ranks, not depth: their DiT runs CLI_LAYERS of its 24
+# layers at its full width
+PAR_DEPTH = f"system.shape_model.num_layers={CLI_LAYERS}"
 
 
 def split_extent_case(torch, dev, gen, b, lp, lq_real, lk_real, h=16, dh=64):
@@ -3651,7 +3689,7 @@ def par_setup(torch, dev, config, mesh, zero1=False, bf16=True):
     from open_diffusiongs_tpu_torch.systems.builder import (
         build_optimizer_config, build_system)
     from open_diffusiongs_tpu_torch.utils.config import load_config
-    cfg = load_config(config, cli_args=["system.use_lpips=false"],
+    cfg = load_config(config, cli_args=["system.use_lpips=false", PAR_DEPTH],
                       makedirs=False)
     system = build_system(cfg.system_type, cfg.system, device=dev, mesh=mesh,
                           bf16=bf16)
@@ -3958,7 +3996,7 @@ def par_launch(torch, mesh, tmp, data, images, init) -> dict:
             f"data.image_dir={images}/", "use_timestamp=false",
             "system.use_lpips=false", "trainer.eval_every_n_steps=0",
             "checkpoint.every_n_train_steps=1000000", "data.batch_size=1",
-            "trainer.zero1=true", "trainer.log_every_n_steps=1"]
+            "trainer.zero1=true", "trainer.log_every_n_steps=1", PAR_DEPTH]
     writes = []
     real = (builtins.open, torch.save, os.makedirs, os.replace)
     if rank == 1:
@@ -4073,7 +4111,7 @@ def phase_parallel(torch, dev, tmp: str) -> dict:
                              + "\n".join(errors))
     dp, sp, ln = (outs[0][k] for k in ("dp", "sp", "launch"))
     # one process restores the two-rank run's checkpoint
-    cfg = load_config(CONFIG, cli_args=["system.use_lpips=false"],
+    cfg = load_config(CONFIG, cli_args=["system.use_lpips=false", PAR_DEPTH],
                       makedirs=False)
     system = build_system(cfg.system_type, cfg.system, device=dev)
     system.init_params(torch.Generator(device=dev).manual_seed(0))
@@ -4268,7 +4306,7 @@ def par_serve(torch, dev, mesh) -> dict:
     from open_diffusiongs_tpu_torch.pipeline import DiffusionGSPipeline
     from open_diffusiongs_tpu_torch.systems.builder import build_system
     from open_diffusiongs_tpu_torch.utils.config import load_config
-    cfg = load_config(CONFIG, makedirs=False)
+    cfg = load_config(CONFIG, cli_args=[PAR_DEPTH], makedirs=False)
     system = build_system(cfg.system_type, cfg.system, device=dev, mesh=mesh)
     system.init_params(torch.Generator(device=dev).manual_seed(0))
     pipe = DiffusionGSPipeline(system)
@@ -4424,7 +4462,7 @@ def par18_gates(res: dict, outs: list) -> None:
     if res["tp2"]["heads_per_rank"] != [8] or not res["tp2"]["packed"]:
         raise AssertionError(f"18 tp2: heads {res['tp2']['heads_per_rank']}"
                              f", packed {res['tp2']['packed']}")
-    if res["pp2"]["layers_per_rank"] != 12:
+    if res["pp2"]["layers_per_rank"] != CLI_LAYERS // 2:
         raise AssertionError(f"18 pp2: {res['pp2']['layers_per_rank']} "
                              f"layers a stage")
     serve = res["dp2_serving"]
@@ -4778,13 +4816,9 @@ CHECK_RECIPE = "diffusionGS_rel.yaml"   # the LPIPS checks' batch
 # two, not TRAIN_STEPS, for the smoke's time limit
 RECIPE_STEPS = 2
 # phase 20's DiT depth where it is not the config's 24: 12 for the
-# object recipes (far from the card's 80 GB), for the smoke's time limit,
-# and for scene_512: at 24 (b = 12, 79.7 GB peak) its gradient turned
-# non-finite on the H100 in 2 of about 18 steps, from finite losses, and
-# in none of 56 steps of runs that read tensors inside the step (ROADMAP
-# Queue 3); --recipe-memory still steps it at 24
-RECIPE_LAYERS = {"diffusionGS_rel.yaml": 12, "diffusionGS_rel_512.yaml": 12,
-                 "diffusionGS_scene_512.yaml": 12}
+# object recipes (far from the card's 80 GB), for the smoke's time limit;
+# both scene recipes step at their configured 24
+RECIPE_LAYERS = {"diffusionGS_rel.yaml": 12, "diffusionGS_rel_512.yaml": 12}
 LPIPS_PAIRS = 8
 LPIPS_RTOL = 2e-4           # the value, card against CPU
 LPIPS_GRAD_REL = 1e-3       # d lpips / d render, rel-max, card against CPU

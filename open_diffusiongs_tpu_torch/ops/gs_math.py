@@ -10,7 +10,7 @@ elementwise formulations (and so the same f32 rounding order):
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,10 +50,21 @@ def build_cov3d(scale: torch.Tensor, rot: torch.Tensor,
 
 def ewa_cov2d(mean_world: torch.Tensor, cov3d: torch.Tensor,
               w2c: torch.Tensor, fxfycxcy: torch.Tensor,
-              tanfov: torch.Tensor) -> torch.Tensor:
+              tanfov: torch.Tensor,
+              near: Optional[float] = None) -> torch.Tensor:
     """Screen-space covariance (xx, xy, yy) [..., N, 3] with the +0.3
     low-pass.  mean_world [..., N, 3]; cov3d [..., N, 6]; w2c [..., 4, 4];
-    fxfycxcy [..., 4]; tanfov [..., 2]."""
+    fxfycxcy [..., 4]; tanfov [..., 2].
+
+    `near`: the caller culls every Gaussian whose view depth is <= near,
+    and for those the Jacobian is taken at depth 1.  Their covariance is
+    then finite but not JAX's, and no caller reads it.  At a depth of
+    exactly 0 (a point in the camera's plane: f32 rounds the depth onto a
+    grid, so it happens) JAX's Jacobian divides 0 by 0.  Its forward
+    stays finite, because the Gaussian is culled, but its backward is
+    0 * NaN = NaN, and that NaN reaches every parameter.  A culled
+    Gaussian's true gradient from this view is 0, and that is what it
+    gets here (ROADMAP Queue 3, Limits)."""
     W = w2c[..., :3, :3]
     p = mean_world
 
@@ -62,6 +73,8 @@ def ewa_cov2d(mean_world: torch.Tensor, cov3d: torch.Tensor,
                 + W[..., None, i, 2] * p[..., 2] + w2c[..., None, i, 3])
 
     t_x, t_y, t_z = view_row(0), view_row(1), view_row(2)
+    if near is not None:
+        t_z = torch.where(t_z > near, t_z, 1.0)
     fx = fxfycxcy[..., None, 0]
     fy = fxfycxcy[..., None, 1]
     limx = 1.3 * tanfov[..., None, 0]

@@ -120,11 +120,15 @@ def preprocess_view(act: ActivatedGaussians, cov3d: torch.Tensor,
     hom_x = affine_row(cam.full_proj, 0)
     hom_y = affine_row(cam.full_proj, 1)
     p_w = affine_row(cam.full_proj, 3)
-    rcp_w = 1.0 / (p_w + 1e-7)
+    # a Gaussian culled at the near plane is never read, but a projective
+    # w of exactly -1e-7 would make its xy infinite and its gradient
+    # 0 * inf = NaN: culled ones divide by 1 + 1e-7 (see ewa_cov2d's near)
+    rcp_w = 1.0 / (torch.where(in_front, p_w, 1.0) + 1e-7)
     xy = torch.stack([cam_lib.ndc2pix(hom_x * rcp_w, w),
                       cam_lib.ndc2pix(hom_y * rcp_w, h)], -1)
 
-    cov2d = gs_math.ewa_cov2d(p, cov3d, cam.w2c, cam.fxfycxcy, cam.tanfov)
+    cov2d = gs_math.ewa_cov2d(p, cov3d, cam.w2c, cam.fxfycxcy, cam.tanfov,
+                              near=NEAR_CULL_Z)
     conic, radius, det_ok = gs_math.conic_and_radius(cov2d)
 
     tiles_x = -(-w // TILE)
