@@ -243,15 +243,24 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   d 40 and 20, both halves of subset attention, shapes
                   off the tiling; each batch element at its own scale;
                   phase 6's bounds (o rel-max 8e-3, lse abs 1e-3, dq/dk/dv
-                  rel-max 1e-2); two backward launches bit-identical;
-                  flash_full_bwd.cu free of atomics; q~ on the card equal
-                  to bf16(q * bf16(d^-1/2)) and, at 3x scores, the
-                  kernel's o on the training twin, not on #5's serving
-                  twin; ptxas: no spills, no wgmma serialisation warnings
-                  in the STATS and backward instantiations; timed by
-                  CUDA events at d 64 and 48 beside SDPA's forward, its
-                  backward alone, the twins and the bounds, the backward
-                  split by kernel;
+                  rel-max 1e-2); #5b's one-pass backward bit-identical
+                  over 5 launches on the same inputs, the last 2 beside
+                  a second stream's matmuls, at 16 heads of 64 and of 48
+                  and queries 1026:4098 over 4098 keys; its prep launch
+                  (q~ bit for bit, delta within 1e-5 of max sum|dO O|,
+                  counters zeroed) at 64, lq != lk and d = 20;
+                  flash_full_bwd.cu free of float atomic adds (source
+                  text, and the SASS where cuobjdump runs); q~ on the
+                  card equal to bf16(q * bf16(d^-1/2)) and, at 3x
+                  scores, the kernel's o on the training twin, not on
+                  #5's serving twin; ptxas: no spills, no wgmma
+                  serialisation warnings in the 4 STATS tiles, #5b's
+                  pass at 4 tiles and its prep; timed by CUDA events at
+                  d 64 and 48 beside SDPA's forward, its backward alone,
+                  the twins and the bounds; the backward split into its
+                  prep (CUDA events) and main pass, by kernel
+                  (torch.profiler), by CUDA-graph replay, and its host
+                  time per call;
                b. 24 DiTBlock(1024, 16, qk_norm=True) forward + backward
                   at b = 4, L = 4098, bf16: exactly 24 #5s and 24 #5b
                   launches and no other attention launch, finite, non-zero
@@ -392,9 +401,10 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   DH = 128 tile, head widths 80, 96, 128, 72 and 100 (the
                   wrapper's padded copy), subset halves and ragged shapes
                   (WIDE_CASES), against their twins at phase 6's bounds;
-                  the training q~ helper bit for bit at d = 128; ptxas'
-                  registers and spills of the three DH = 128
-                  instantiations (no spill, no C7515-C7520); timed at
+                  the training q~ helper bit for bit at d = 128; #5b
+                  bit-identical over 5 launches (2 contended) at 8 heads
+                  of 128; ptxas' registers and spills of the two DH = 128
+                  instantiations (no spill, no C7514-C7520); timed at
                   b = 4, L = 4098, 8 heads of 128 beside SDPA's forward
                   and backward alone and the bound, and splash_mha at
                   b = 1 (the sampler's shape);
@@ -611,11 +621,13 @@ def attn_bwd_bound(b, lp, l_real, h, dh) -> dict:
 
 
 def device_ms_by_kernel(torch, fn, iters: int = 10,
-                        warm_up: bool = True) -> dict:
+                        warm_up: bool = True, records: dict = None) -> dict:
     """Device ms per call of each kernel fn() launches, by torch.profiler,
     largest first, under its name cut to 60 characters (empty if the
     profiler sees no device time).  One unprofiled call first unless the
-    caller has warmed fn up."""
+    caller has warmed fn up.  `records`, when given, receives each name's
+    number of kernel records (iters x its launches a call, unless the
+    profiler lost some)."""
     from torch.profiler import ProfilerActivity, profile
     if warm_up:
         fn()
@@ -631,6 +643,8 @@ def device_ms_by_kernel(torch, fn, iters: int = 10,
                           "", e.key)[:60]
             out[name] = (out.get(name, 0.0)
                          + e.self_device_time_total / 1e3 / iters)
+            if records is not None:
+                records[name] = records.get(name, 0) + e.count
     del prof
     collect_garbage()
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
@@ -1701,12 +1715,15 @@ def ptxas_summary(log: str, entry: str) -> dict:
                 args = re.search(r"ILi(\d+)ELb([01])ELb([01])E"
                                  r"(?:Lb([01])E)?", name)
                 kern = re.search(r"([a-z_]+_kernel)ILi(\d+)E", name)
+                plain = re.search(r"\d([a-z_]+_kernel)E", name)
                 if args:
                     name = "DH={} split={} score_bf16={}".format(
                         *args.groups()[:3])
                     name += " stats=1" if args.group(4) == "1" else ""
                 elif kern:
                     name = "{} DH={}".format(*kern.groups())
+                elif plain:
+                    name = plain.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -2217,18 +2234,43 @@ def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
 
     from open_diffusiongs_tpu_torch.ops import attention
     b, l, h, d = q.shape
+
+    def bwd():
+        return attention.flash_full_mha_bwd(q, k, v, o, do, lse)
+
+    plan = attention.full_bwd_plan(b, l, k.shape[1], h, d,
+                                   torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
+    dm = attention._full_operands(k, v, do)[1]
+    qs, delta, counters, _ = attention._full_bwd_scratch(plan, b, l, h, dm,
+                                                         q.device)
+    records = {}
+    bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        bwd()
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
     res = {"fwd_ms": cuda_ms(lambda: attention.flash_full_mha_stats(q, k, v),
                              20),
-           "bwd_ms": cuda_ms(lambda: attention.flash_full_mha_bwd(
-               q, k, v, o, do, lse), 20),
+           "bwd_ms": cuda_ms(bwd, 20),
+           # the backward's three launches: the prep alone by CUDA
+           # events, the main pass and the epilogue the rest (by kernel
+           # below); the whole call by CUDA-graph replay (device time
+           # without the host's); the wrapper's host time
+           "bwd_prep_ms": cuda_ms(lambda: attention._full_bwd_prep(
+               q, o, do, qs, delta, counters), 20),
+           "bwd_graph_ms": graph_ms(bwd, 20),
+           "bwd_host_us": host_us,
+           "bwd_plan": plan._asdict(),
            "fwd_plain_ms": cuda_ms(lambda: full_twin_by_head(
                torch, attention.flash_full_mha_stats_ref, h, q, k, v), 1),
            "bwd_plain_ms": cuda_ms(lambda: full_twin_by_head(
                torch, attention.flash_full_mha_bwd_ref, h, q, k, v, o, do,
                lse), 1),
-           "bwd_kernels_ms": device_ms_by_kernel(
-               torch, lambda: attention.flash_full_mha_bwd(q, k, v, o, do,
-                                                           lse)),
+           "bwd_kernels_ms": device_ms_by_kernel(torch, bwd,
+                                                 records=records),
+           "bwd_kernel_records": records,
            "fwd_bound": attn_fwd_bound(b, l, l, h, d, stats=True,
                                        pv="tf32"),
            "bwd_bound": attn_bwd_bound(b, l, l, h, d)}
@@ -2241,15 +2283,112 @@ def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
     dot = do.transpose(1, 2)
     res["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 20)
+    res["bwd_main_ms"] = res["bwd_ms"] - res["bwd_prep_ms"]
+    # Late in this long process the profiler's 10-call window can lose
+    # kernel records (smokes have read half of #5b's time here, or none),
+    # where the same window in a fresh process records every launch
+    # (chip_probe_bwd.py time): a split with a record missing is not a
+    # measurement
+    if not (records and all(n == 10 for n in records.values())):
+        res["bwd_kernels_ms"] = None
     return res
 
 
+# How many times phases 16a and 21a launch #5b on the same inputs, and how
+# many of those launches run while a second stream keeps the card busy
+BWD_REPEATS, BWD_CONTENDED = 5, 2
+# Any way CUDA source can add floats atomically: the atomic intrinsics
+# (overloaded, so none at all), PTX red / atom on a float type, and TMA's
+# bulk reductions (tests/test_torch_build.py holds the same pattern)
+FLOAT_ATOMIC_ADD = (r"\batomic[A-Z]\w*\s*\(|\bred\.[\w.:]*\b|"
+                    r"\batom\.[\w.:]*\.(?:f16|bf16|f32|f64|f16x2|bf16x2)\b|"
+                    r"cp\.reduce\.async\.bulk")
+DELTA_REL_BOUND = 1e-5   # prep's delta vs _full_delta, of max sum|dO * O|
+
+
+def bwd_repeats(torch, fn) -> dict:
+    """BWD_REPEATS calls of the backward fn() on the same inputs, the last
+    BWD_CONTENDED while a second stream runs large matmuls (the card's SMs
+    taken first by other work, so the CTAs start in another order and
+    wait on each other longer): whether every call equals the first bit
+    for bit."""
+    ref = fn()
+    torch.cuda.synchronize()
+    a = torch.randn((8192, 8192), device=ref[0].device, dtype=torch.bfloat16)
+    side = torch.cuda.Stream()
+    same = []
+    for i in range(1, BWD_REPEATS):
+        if i >= BWD_REPEATS - BWD_CONTENDED:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(4):
+                    torch.matmul(a, a)
+        out = fn()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(x, y) for x, y in zip(ref, out)))
+    del a
+    return {"launches": BWD_REPEATS, "contended": BWD_CONTENDED,
+            "bit_identical": all(same)}
+
+
+def full_bwd_prep_check(torch, q, k, v, o, do) -> dict:
+    """#5b's prep launch against its twins: q~ bit for bit
+    `_train_prescaled_q` (zero past d, at the tile's width), delta within
+    DELTA_REL_BOUND of `_full_delta` (another summation order), every
+    counter zeroed."""
+    from open_diffusiongs_tpu_torch.ops import attention
+    b, l, h, d = q.shape
+    plan = attention.full_bwd_plan(b, l, k.shape[1], h, d, 132)
+    qs, delta, counters, _ = attention._full_bwd_scratch(
+        plan, b, l, h, plan.tile, q.device)
+    counters.fill_(-1)
+    attention._full_bwd_prep(q, o, do, qs, delta, counters)
+    want = attention._full_delta(do, o)
+    scale = float((do.float() * o.float()).abs().sum(-1).max())
+    res = {"q_tilde_bit_exact": bool(torch.equal(
+               qs[..., :d], attention._train_prescaled_q(q))
+               and not qs[..., d:].any()),
+           "delta_max_abs": float((delta[..., :l] - want[..., :l]).abs()
+                                  .max()),
+           "delta_scale": scale,
+           "counters_zero": not counters.any()}
+    res["delta_ok"] = res["delta_max_abs"] <= DELTA_REL_BOUND * scale
+    return res
+
+
+def sass_float_atomics(entry: str) -> dict:
+    """The atomic instructions in the SASS of the library's kernels whose
+    names hold `entry` (cuobjdump, when the toolkit has it), and those on a
+    float type."""
+    import shutil
+
+    from open_diffusiongs_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": None}
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True).stdout
+    ops, name = [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and entry in name:
+            ops += re.findall(r"\b(?:RED|REDG|REDAS|ATOM|ATOMG|ATOMS)"
+                              r"(?:\.[A-Z0-9_]+)*", line)
+    return {"cuobjdump": tool, "atomic_ops": sorted(set(ops)),
+            "float_atomic_ops": sorted({x for x in ops if re.search(
+                r"\.B?F(?:16|32|64)\b", x)})}
+
+
 def phase_general_train_kernels(torch, dev) -> dict:
-    """16a: #5s and #5b against their twins at GENERAL_TRAIN_CASES; q~'s
-    rounding; determinism; the build; times at b = 4, L = 4098."""
+    """16a: #5s and #5b against their twins at GENERAL_TRAIN_CASES; #5b's
+    prep launch against its twins; q~'s rounding; determinism under
+    contention; the build; times at b = 4, L = 4098."""
     from open_diffusiongs_tpu_torch.ops import _build, attention
     gen = torch.Generator(device=dev).manual_seed(16)
-    cases, timed = {}, {}
+    cases, timed, kept = {}, {}, {}
     for b, n, h, d, q0, q1, lk, contiguous in GENERAL_TRAIN_CASES:
         name = f"{b}x{n}x{h}x{d}"
         if (q0, q1, lk) != (0, n, n):
@@ -2261,17 +2400,33 @@ def phase_general_train_kernels(torch, dev) -> dict:
         if (b, n, q0, lk, contiguous) == (TRAIN_BATCH, 4098, 0, 4098,
                                            False):
             timed[f"h{h}_d{d}"] = inputs
+        if (b, n, h, d, q0, q1, lk) == (TRAIN_BATCH, 4098, 16, 64, 1026,
+                                         4098, 4098):
+            kept["queries 1026:4098 over 4098 keys"] = inputs
+        if (n, d) == (1100, 20):
+            kept["d=20 (padded copies)"] = inputs
         del inputs
     q, k, v, o, do, lse = timed["h16_d64"]
-    # Determinism: two launches of the backward on the same inputs agree
-    # bit for bit (every output written once, sums in a fixed order).
-    g1 = attention.flash_full_mha_bwd(q, k, v, o, do, lse)
-    g2 = attention.flash_full_mha_bwd(q, k, v, o, do, lse)
-    bit_identical = all(torch.equal(x, y) for x, y in zip(g1, g2))
-    del g1, g2
+    # Determinism: BWD_REPEATS launches on the same inputs agree bit for
+    # bit, BWD_CONTENDED of them beside a second stream's matmuls (every
+    # output written once, dQ summed in one fixed order).
+    repeats = {key: bwd_repeats(torch, lambda x=x: attention
+                                .flash_full_mha_bwd(*x))
+               for key, x in (("16x64", timed["h16_d64"]),
+                              ("16x48", timed["h16_d48"]),
+                              ("queries 1026:4098 over 4098 keys",
+                               kept["queries 1026:4098 over 4098 keys"]))}
+    prep = {key: full_bwd_prep_check(torch, *x[:5])
+            for key, x in (("16x64", timed["h16_d64"]),
+                           ("queries 1026:4098 over 4098 keys",
+                            kept["queries 1026:4098 over 4098 keys"]),
+                           ("d=20 (padded copies)",
+                            kept["d=20 (padded copies)"]))}
+    del kept
     with open(os.path.join(ROOT, "open_diffusiongs_tpu_torch", "csrc",
                            "flash_full_bwd.cu")) as f:
-        atomic_free = "atomic" not in f.read().lower()
+        float_atomics = re.findall(FLOAT_ATOMIC_ADD, f.read())
+    sass = sass_float_atomics("flash_full_bwd")
     # q~ = bf16(q * bf16(d^-1/2)), the training function's (not #5's
     # bf16(d^-1/2 log2 e)): the helper bit for bit on the card, and at 3x
     # scores the kernel's o sits on the training twin, not on #5's.
@@ -2299,14 +2454,14 @@ def phase_general_train_kernels(torch, dev) -> dict:
         builds.update({f"{src} {k}": v
                        for k, v in ptxas_summary(log, entry).items()
                        if src != "flash_full_fwd.cu" or "stats=1" in k})
-        warnings += len(re.findall(r"C75(?:15|19|20)", log))
+        warnings += len(re.findall(r"C75(?:14|15|19|20)", log))
     times = {key: general_train_timing(torch, *inputs)
              for key, inputs in timed.items()}
     del timed, q, k, v, o, do, lse
     torch.cuda.empty_cache()
-    res = {"cases": cases, "times": times,
-           "bwd_bit_identical": bit_identical,
-           "bwd_source_atomic_free": atomic_free, "prescale": prescale,
+    res = {"cases": cases, "times": times, "bwd_repeats": repeats,
+           "bwd_prep": prep, "bwd_source_float_atomics": float_atomics,
+           "bwd_sass": sass, "prescale": prescale,
            "ptxas": builds, "ptxas_serialisation_warnings": warnings,
            "max_abs_err_fwd": max(max(c["o_max_abs"], c["lse_max_abs"])
                                   for c in cases.values()),
@@ -2326,11 +2481,17 @@ def phase_general_train_kernels(torch, dev) -> dict:
             if not val <= bound:
                 raise AssertionError(f"general-route training {name}: "
                                      f"{what} {val:.3g} > {bound}")
-    if not bit_identical:
-        raise AssertionError("#5b: dq/dk/dv differ between two launches on "
-                             "the same inputs")
-    if not atomic_free:
-        raise AssertionError("csrc/flash_full_bwd.cu uses atomics")
+    for key, r in repeats.items():
+        if not r["bit_identical"]:
+            raise AssertionError(f"#5b at {key}: dq/dk/dv differ between "
+                                 f"launches on the same inputs: {r}")
+    for key, r in prep.items():
+        if not (r["q_tilde_bit_exact"] and r["delta_ok"]
+                and r["counters_zero"]):
+            raise AssertionError(f"#5b's prep launch at {key}: {r}")
+    if float_atomics or sass.get("float_atomic_ops"):
+        raise AssertionError(f"flash_full_bwd.cu adds floats atomically: "
+                             f"{float_atomics}, SASS {sass}")
     if not prescale["helper_bit_exact"]:
         raise AssertionError("the training q~ differs from bf16(q * "
                              "bf16(d^-1/2)) on the card")
@@ -2338,7 +2499,8 @@ def phase_general_train_kernels(torch, dev) -> dict:
             < 0.5 * prescale["mean_err_to_serving_twin"]):
         raise AssertionError(f"#5s does not compute the training function: "
                              f"{prescale}")
-    if len(builds) != 4 + 8:    # 4 STATS tiles; dQ and dK/dV at 4 tiles
+    if len(builds) != 4 + 4 + 2:   # 4 STATS tiles; #5b's pass at 4 tiles,
+        # its prep and epilogue
         raise AssertionError(f"ptxas reports {sorted(builds)}")
     spills = {k: v for k, v in builds.items()
               if v.get("spill_stores") or v.get("spill_loads")}
@@ -5289,6 +5451,8 @@ def phase_wide_kernels(torch, dev) -> dict:
     q, k, v, o, do, lse = timed
     helper = torch.equal(attention._train_prescaled_q(q), (
         q.float() * attention._train_scale(128, q.dtype)).to(torch.bfloat16))
+    repeats = bwd_repeats(torch, lambda: attention.flash_full_mha_bwd(
+        q, k, v, o, do, lse))
     builds, warnings = {}, 0
     for src, entry in (("flash_full_fwd.cu", "flash_full_kernel"),
                        ("flash_full_bwd.cu", "flash_full_bwd")):
@@ -5296,7 +5460,7 @@ def phase_wide_kernels(torch, dev) -> dict:
         builds.update({f"{src} {key}": val for key, val in
                        ptxas_summary(log, entry).items()
                        if "DH=128" in key})
-        warnings += len(re.findall(r"C75(?:15|19|20)", log))
+        warnings += len(re.findall(r"C75(?:14|15|19|20)", log))
     times = general_train_timing(torch, q, k, v, o, do, lse)
     times["splash_ms"] = cuda_ms(lambda: attention.splash_mha(q, k, v), 20)
     del timed, q, k, v, o, do, lse
@@ -5312,7 +5476,8 @@ def phase_wide_kernels(torch, dev) -> dict:
                **attn_fwd_bound(1, 4098, 4098, 8, 128, pv="tf32")}
     del q1, k1, v1
     res = {"cases": cases, "times": times, "serving_b1": serving,
-           "train_prescale_helper_bit_exact": helper, "ptxas": builds,
+           "train_prescale_helper_bit_exact": helper,
+           "bwd_repeats_8x128": repeats, "ptxas": builds,
            "ptxas_serialisation_warnings": warnings,
            "max_abs_err_fwd": max(max(c["o_max_abs"], c["lse_max_abs"])
                                   for c in cases.values()),
@@ -5340,7 +5505,11 @@ def phase_wide_kernels(torch, dev) -> dict:
     if not helper:
         raise AssertionError("the training q~ differs from bf16(q * "
                              "bf16(128^-1/2)) on the card")
-    if len(builds) != 3:
+    if not repeats["bit_identical"]:
+        raise AssertionError(f"#5b at 8 heads of 128: dq/dk/dv differ "
+                             f"between launches on the same inputs: "
+                             f"{repeats}")
+    if len(builds) != 2:   # #5s and #5b's pass at DH = 128
         raise AssertionError(f"ptxas reports {sorted(builds)} at DH = 128")
     spills = {key: val for key, val in builds.items()
               if val.get("spill_stores") or val.get("spill_loads")}
@@ -5872,6 +6041,7 @@ def main() -> int:
          "max_abs_err": general_kernels["max_abs_err_bwd"],
          "ms": t64["bwd_ms"], "plain_ms": t64["bwd_plain_ms"],
          **roof(t64["bwd_bound"]), "library_ms": t64["sdpa_bwd_ms"],
+         "ms_prep": t64["bwd_prep_ms"], "ms_graph": t64["bwd_graph_ms"],
          "ms_d48": t48["bwd_ms"], "bound_ms_d48": t48["bwd_bound"]["bound_ms"],
          "library_ms_d48": t48["sdpa_bwd_ms"],
          "launches_qk_norm_stack": qk_train["launches"]["LAUNCHES_FULL_BWD"]},
@@ -5914,7 +6084,9 @@ def main() -> int:
          "ms": wide["times"]["bwd_ms"],
          "plain_ms": wide["times"]["bwd_plain_ms"],
          **roof(wide["times"]["bwd_bound"]),
-         "library_ms": wide["times"]["sdpa_bwd_ms"]},
+         "library_ms": wide["times"]["sdpa_bwd_ms"],
+         "ms_prep": wide["times"]["bwd_prep_ms"],
+         "ms_graph": wide["times"]["bwd_graph_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu, flash_full_fwd.cu): TMA tensor maps and loads,
+// flash_attn_bwd.cu, flash_full_fwd.cu, flash_full_bwd.cu): TMA tensor
+// maps and loads,
 // mbarriers, warpgroup register hand-off, and wgmma on bf16 tiles.
 //
 // Shared-memory tiles are [rows, DH] bf16 with DH in {16, 32, 64}: one row
@@ -384,7 +385,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // (g = lane / 4, t4 = lane % 4), the mma.sync C layout per n8 tile.  TB is
 // B's transpose bit: 0 for a K-major B, 1 for an MN-major B.  scale_d = 0
 // overwrites D.  `rs` takes A from registers; `ss` (A from shared memory)
-// exists for N = 64 only, the dK/dV kernel's score products.
+// exists for N = 16, 32 and 64, the backward kernels' products on staged
+// tiles; at N = 16 and 32 its TA is A's transpose bit (1: an MN-major A).
 template <int N>
 struct Wgmma;
 
@@ -405,6 +407,20 @@ struct Wgmma<16> {
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
           "n"(TB));
+  }
+  // A from shared memory (K-major descriptor, or MN-major with TA = 1)
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -428,6 +444,23 @@ struct Wgmma<32> {
         "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
           "n"(TB));
+  }
+  // A from shared memory (K-major descriptor, or MN-major with TA = 1)
+  template <int TB, int TA = 0>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
 
@@ -532,6 +565,20 @@ __device__ __forceinline__ void mma_mn(float (&acc)[DH / 2],
 #pragma unroll
   for (int sp = 0; sp < DH / SP; ++sp)
     Wgmma<SP>::template rs<1>(
+        *reinterpret_cast<float(*)[SP / 2]>(&acc[sp * SP / 2]), a,
+        mndesc_tile<DH>(tile, rows, sp, kj), 1);
+}
+
+// mma_mn with A from shared memory: acc (+)= A . B over one k16 step of a
+// span-stored B read MN-major, `a` the K-major descriptor of A's k16 step.
+template <int DH>
+__device__ __forceinline__ void mma_mn_ss(float (&acc)[DH / 2], uint64_t a,
+                                          const __nv_bfloat16* tile, int rows,
+                                          int kj) {
+  constexpr int SP = span_of<DH>();
+#pragma unroll
+  for (int sp = 0; sp < DH / SP; ++sp)
+    Wgmma<SP>::template ss<1>(
         *reinterpret_cast<float(*)[SP / 2]>(&acc[sp * SP / 2]), a,
         mndesc_tile<DH>(tile, rows, sp, kj), 1);
 }

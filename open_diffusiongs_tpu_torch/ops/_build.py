@@ -62,9 +62,15 @@ SIGNATURES = {
     # batch, row and head strides (elements), stream
     "odgs_flash_full_fwd_stats_bf16": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9
                                       + [_P],
-    # q~, k, v, dout, lse, delta, dq, dk, dv, b, lq, lk, h, d, dm, dq_scale,
-    # q~/k/v/dout batch, row and head strides (elements), stream
-    "odgs_flash_full_bwd_bf16": [_P] * 9 + [_I] * 6 + [_F] + [_L] * 12
+    # q, o, dout, q~ (out), delta (out), counters, b, lq, h, d, dm,
+    # n_counters, scale (bf16(d^-1/2)), q/o/dout batch, row and head
+    # strides (elements), stream
+    "odgs_flash_full_bwd_prep_bf16": [_P] * 6 + [_I] * 6 + [_F] + [_L] * 9
+                                     + [_P],
+    # q~, k, v, dout, lse, delta, acc, counters, dq, dk, dv, b, lq, lk, h,
+    # d, dm, groups, dq_scale, k/v/dout batch, row and head strides
+    # (elements), stream
+    "odgs_flash_full_bwd_bf16": [_P] * 11 + [_I] * 7 + [_F] + [_L] * 9
                                 + [_P],
     # q, k, v, dout, lse, delta, dq, dk, dv, b, lp, h, dh, lk_real,
     # lq_real, scale, q/k/v/dout/dq/dk/dv batch and row strides

@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -78,13 +79,14 @@ LAUNCHES_BWD = 0     # backward launches (one dQ + one dK/dV kernel each)
 LAUNCHES_FULL = 0    # flash_full_mha kernel launches (the general route)
 LAUNCHES_MHA_FULL = 0  # mha_full (bench variant) kernel launches
 LAUNCHES_FULL_STATS = 0  # flash_full_mha_stats (#5s) kernel launches
-LAUNCHES_FULL_BWD = 0    # flash_full_mha_bwd (#5b) launches (dQ + dK/dV)
+LAUNCHES_FULL_BWD = 0    # flash_full_mha_bwd (#5b) calls (3 launches each)
 LAUNCHES_SPLASH = 0      # splash_mha (#5s, its lse dropped) launches
 
 PACKED_DH = (16, 32, 64)   # head widths of the packed kernels
 FULL_MAX_D = 64            # widest head of #5 (JAX's flash_full_mha)
 SPLASH_MAX_D = 128         # widest head of #5s / #5b (the splash route)
 SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
+FULL_BWD_KEYS = 128        # keys per CTA of #5b's main pass (a key block)
 
 
 def _check_shapes(q, k, v, num_heads: int, l_real=None, lq_real=None,
@@ -746,7 +748,8 @@ def _full_stats_layout(lse: torch.Tensor) -> torch.Tensor:
 
 def _full_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO ∘ O) per head in f32, reduced straight into the
-    backward's zero-padded [b, h, stats_pitch(l)] layout."""
+    backward's zero-padded [b, h, stats_pitch(l)] layout: the plain version
+    of the delta that #5b's prep launch writes."""
     b, l, h, _ = o.shape
     out = torch.zeros((b, h, stats_pitch(l)), dtype=torch.float32,
                       device=o.device)
@@ -755,15 +758,81 @@ def _full_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class FullBwdPlan(NamedTuple):
+    """How #5b's main pass (csrc/flash_full_bwd.cu) covers one call:
+    `tile` the head tile, `q_step` query rows a step, `n_q_tiles` /
+    `n_key_blocks` the query tiles and 128-key blocks of one (batch, head),
+    `groups` the CTAs each key block gets (heads run `groups` at a time),
+    `grid` = groups x n_key_blocks CTAs, `acc_shape` the f32 dQ accumulator
+    [b*h, n_q_tiles * q_step, tile], `counters` the hand-off counters plus
+    the ticket, `pitch` the lse / delta row pitch."""
+    tile: int
+    q_step: int
+    n_q_tiles: int
+    n_key_blocks: int
+    groups: int
+    grid: int
+    acc_shape: tuple
+    counters: int
+    pitch: int
+
+
+def full_bwd_plan(b: int, lq: int, lk: int, h: int, d: int, n_sm: int
+                  ) -> FullBwdPlan:
+    """#5b's plan for q [b, lq, h, d] over lk keys on a card of n_sm SMs.
+    The grid is persistent: as many groups of n_key_blocks CTAs as fit on
+    the SMs (one CTA an SM), at least one and at most one a head."""
+    tile = full_tile_width(d)
+    q_step = 32 if tile > 64 else 64
+    n_qt = -(-lq // q_step)
+    n_kb = -(-lk // FULL_BWD_KEYS)
+    groups = max(1, min(b * h, n_sm // n_kb))
+    return FullBwdPlan(tile, q_step, n_qt, n_kb, groups, groups * n_kb,
+                       (b * h, n_qt * q_step, tile), b * h * n_qt + 1,
+                       stats_pitch(lq))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _full_bwd_scratch(plan: FullBwdPlan, b: int, lq: int, h: int, dm: int,
+                      device) -> tuple:
+    """#5b's buffers, uninitialised (torch.empty): q~ [b, lq, h, dm] bf16,
+    delta [b, h, pitch] f32, the counters (int32, zeroed by the prep
+    launch) and the f32 dQ accumulator."""
+    return (torch.empty((b, lq, h, dm), dtype=torch.bfloat16, device=device),
+            torch.empty((b, h, plan.pitch), dtype=torch.float32,
+                        device=device),
+            torch.empty(plan.counters, dtype=torch.int32, device=device),
+            torch.empty(plan.acc_shape, dtype=torch.float32, device=device))
+
+
+def _full_bwd_prep(q, o, do, qs, delta, counters) -> None:
+    """#5b's prep launch: q~ (`_train_prescaled_q`, zero past d) into qs,
+    delta (`_full_delta`) into its [b, h, pitch] layout, the counters
+    zeroed."""
+    b, l, h, d = q.shape
+    err = _build.load_library().odgs_flash_full_bwd_prep_bf16(
+        q.data_ptr(), o.data_ptr(), do.data_ptr(), qs.data_ptr(),
+        delta.data_ptr(), counters.data_ptr(), b, l, h, d, qs.shape[-1],
+        counters.numel(), _train_scale(d, q.dtype), *q.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_full_mha_bwd (prep)")
+
+
 def flash_full_mha_bwd(q, k, v, o, do, lse):
     """#5b: (dq, dk, dv) of `flash_full_mha_stats` from its o and lse and
     the output cotangent do, in the primal dtypes.
 
-    CPU tensors: `flash_full_mha_bwd_ref`.  CUDA tensors: the two sm_90a
-    kernels of csrc/flash_full_bwd.cu (bf16, any d <= 128).  q~ is formed
-    here once (`_train_prescaled_q`, as the forward rounds it) and
-    delta = rowsum(dO ∘ O) in plain torch, as for the packed route; views
-    TMA cannot address go to the kernels as zero-padded copies."""
+    CPU tensors: `flash_full_mha_bwd_ref`.  CUDA tensors: csrc/
+    flash_full_bwd.cu (bf16, any d <= 128), three launches: the prep (q~
+    and delta, as `_train_prescaled_q` and `_full_delta` form them), one
+    deterministic pass over key blocks (`full_bwd_plan`) and an epilogue
+    that rounds dq.  Views TMA cannot address go to the kernel as
+    zero-padded copies."""
     global LAUNCHES_FULL_BWD
     b, l, lk, h, d = _check_full_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
@@ -773,17 +842,20 @@ def flash_full_mha_bwd(q, k, v, o, do, lse):
     _check_bf16_cuda("flash_full_mha_bwd", dict(q=q, k=k, v=v, o=o, do=do),
                      aligned=False)
     lse = _full_stats_layout(lse)
-    delta = _full_delta(do, o)
-    (qs, k, v, do), dm = _full_operands(_train_prescaled_q(q), k, v, do)
+    (k, v, dom), dm = _full_operands(k, v, do)
+    plan = full_bwd_plan(b, l, lk, h, d, _sm_count(q.device.index or 0))
+    qs, delta, counters, acc = _full_bwd_scratch(plan, b, l, h, dm, q.device)
     dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, lk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    _full_bwd_prep(q, o, do, qs, delta, counters)
     err = _build.load_library().odgs_flash_full_bwd_bf16(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, l, lk, h, d, dm, _train_scale(d, q.dtype),
-        *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *do.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), dom.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+        counters.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        l, lk, h, d, dm, plan.groups, _train_scale(d, q.dtype),
+        *k.stride()[:3], *v.stride()[:3], *dom.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_full_mha_bwd")
     LAUNCHES_FULL_BWD += 1
     return dq, dk, dv

@@ -128,8 +128,12 @@ def test_stats_by_head_layout():
 def test_packed_attention_sources_are_wgmma_tma(name):
     """The attention kernels (packed and general route) issue wgmma fed by
     TMA through mbarriers (the PTX lives in hopper.cuh); no mma.sync path is
-    left, and the backward takes no atomics (its outputs are bit-identical
-    across launches)."""
+    left, and no backward adds a float with an atomic (its outputs are
+    bit-identical across launches).  The packed backward takes no atomics
+    at all; the general route's one-pass backward orders its dQ sums with
+    integer atomics only: one u32 fetch-and-add (the CTAs' ticket) beside
+    acquire / release counters, and no atomic intrinsic, `red.` or bulk
+    reduction."""
     src = (_build.CSRC / name).read_text()
     header = (_build.CSRC / "hopper.cuh").read_text()
     assert '#include "hopper.cuh"' in src
@@ -138,8 +142,36 @@ def test_packed_attention_sources_are_wgmma_tma(name):
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier."):
         assert ptx in header, ptx
     assert not re.search(r"\bmma\.sync\.aligned", src + header)
-    if name.endswith("_bwd.cu"):
+    if name == "flash_attn_bwd.cu":
         assert "atomic" not in src.lower()
+    if name == "flash_full_bwd.cu":
+        assert not re.search(FLOAT_ATOMIC_ADD, src)
+        assert re.findall(r"\batom\.[\w.:]+", src) == [
+            "atom.relaxed.gpu.global.add.u32"]
+        assert "ld.acquire.gpu" in src and "st.release.gpu" in src
+
+
+# Any way CUDA source can add floats atomically: the atomic intrinsics
+# (overloaded, so none at all), PTX red / atom on a float type, and TMA's
+# bulk reductions.
+FLOAT_ATOMIC_ADD = (r"\batomic[A-Z]\w*\s*\(|\bred\.[\w.:]*\b|"
+                    r"\batom\.[\w.:]*\.(?:f16|bf16|f32|f64|f16x2|bf16x2)\b|"
+                    r"cp\.reduce\.async\.bulk")
+
+
+@pytest.mark.parametrize("text,hit", [
+    ("atomicAdd(p, 1.f)", True), ("atomicAdd_block (p, x)", True),
+    ("red.global.add.f32 [%0], %1;", True),
+    ("red.release.gpu.global.add.u32 [%0], 1;", True),
+    ("atom.global.add.f32 %0, [%1], %2;", True),
+    ("atom.add.noftz.bf16x2 %0, [%1], %2;", True),
+    ("cp.reduce.async.bulk.global.shared::cta.add.f32", True),
+    ("atom.relaxed.gpu.global.add.u32 %0, [%1], 1;", False),
+    ("ld.acquire.gpu.global.u32 %0, [%1];", False),
+    ("// no float is added by an atomic", False),
+])
+def test_float_atomic_add_pattern(text, hit):
+    assert bool(re.search(FLOAT_ATOMIC_ADD, text)) is hit
 
 
 def _fused_views(b, l, h, d):

@@ -8,8 +8,9 @@ that way).  This file parses every `.py` of `open_diffusiongs_tpu_torch/`
 with `ast` and fails on any `import` or `from ... import` of a forbidden
 package, module-level or function-local: the JAX package, JAX and its
 libraries, and the `lpips` package (the port converts its weights itself,
-`tools/convert_lpips_weights.py`).  So do `chip_smoke.py` and
-`chip_probe_nan.py`, the root scripts that drive it on the card.  The
+`tools/convert_lpips_weights.py`).  So do `chip_smoke.py`,
+`chip_probe_nan.py` and `chip_probe_bwd.py`, the root scripts that drive
+it on the card.  The
 two weight converters also run as `python -m` entry points.
 """
 
@@ -52,7 +53,8 @@ def test_module_imports_no_jax_side(path):
     assert forbidden_imports((ROOT / path).read_text()) == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_probe_nan.py"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_probe_nan.py",
+                                  "chip_probe_bwd.py"])
 def test_chip_scripts_import_no_jax_side(path):
     """The root scripts that drive the port on the card."""
     assert forbidden_imports((ROOT / path).read_text()) == []
