@@ -234,8 +234,9 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   u2net --extract-mesh and U2NET_NPZ set: PLY, renders and
                   a non-empty mesh.obj.
   16. general-route training
-               a. #5s (flash_full_mha_stats: flash_full_fwd.cu's STATS
-                  flag) and #5b (flash_full_mha_bwd: flash_full_bwd.cu)
+               a. #5s (flash_full_mha_stats: flash_full_fwd.cu's
+                  flash_full_stats_kernel) and #5b (flash_full_mha_bwd:
+                  flash_full_bwd.cu)
                   against their twins (run head by head) at
                   GENERAL_TRAIN_CASES: b = 4, L = 4098, 16 heads of 64
                   and of 48 on column slices of a fused qkv, 64 also on
@@ -246,7 +247,8 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   rel-max 1e-2); #5b's one-pass backward bit-identical
                   over 5 launches on the same inputs, the last 2 beside
                   a second stream's matmuls, at 16 heads of 64 and of 48
-                  and queries 1026:4098 over 4098 keys; its prep launch
+                  and queries 1026:4098 over 4098 keys, #5s's o and lse
+                  likewise at 16 heads of 64 and of 48; its prep launch
                   (q~ bit for bit, delta within 1e-5 of max sum|dO O|,
                   counters zeroed) at 64, lq != lk and d = 20;
                   flash_full_bwd.cu free of float atomic adds (source
@@ -254,10 +256,12 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   card equal to bf16(q * bf16(d^-1/2)) and, at 3x
                   scores, the kernel's o on the training twin, not on
                   #5's serving twin; ptxas: no spills, no wgmma
-                  serialisation warnings in the 4 STATS tiles, #5b's
-                  pass at 4 tiles and its prep; timed by CUDA events at
-                  d 64 and 48 beside SDPA's forward, its backward alone,
-                  the twins and the bounds; the backward split into its
+                  serialisation warning (C7514-C7520) in #5s at its 4
+                  tiles, #5b's pass at 4 tiles and its prep; timed by
+                  CUDA events (#5s also by CUDA-graph replay, beside its
+                  plan) at d 64 and 48 beside SDPA's forward, its
+                  backward alone, the twins and the bounds; the backward
+                  split into its
                   prep (CUDA events) and main pass, by kernel
                   (torch.profiler), by CUDA-graph replay, and its host
                   time per call;
@@ -402,12 +406,13 @@ Phases, one summary line each (every failure raises and exits non-zero):
                   wrapper's padded copy), subset halves and ragged shapes
                   (WIDE_CASES), against their twins at phase 6's bounds;
                   the training q~ helper bit for bit at d = 128; #5b
-                  bit-identical over 5 launches (2 contended) at 8 heads
-                  of 128; ptxas' registers and spills of the two DH = 128
-                  instantiations (no spill, no C7514-C7520); timed at
-                  b = 4, L = 4098, 8 heads of 128 beside SDPA's forward
-                  and backward alone and the bound, and splash_mha at
-                  b = 1 (the sampler's shape);
+                  and #5s bit-identical over 5 launches (2 contended) at
+                  8 heads of 128; ptxas' registers and spills of the two
+                  DH = 128 instantiations (no spill, no C7514-C7520);
+                  timed (CUDA events, and CUDA-graph replay) at b = 4,
+                  L = 4098, 8 heads of 128 beside SDPA's forward and
+                  backward alone and the bound, and splash_mha at b = 1
+                  (the sampler's shape);
                b. configs/diffusionGS_rel.yaml with dim_heads 128 (width
                   1024, 8 heads of 128, all 24 layers, bf16, random
                   weights from seed 0): a 256^2 asset through
@@ -1390,7 +1395,7 @@ def phase_train(torch, dev, label="8 train path", config=CONFIG,
                    blend_bwd_device_ms_per_step=kernel_ms(
                        by_kernel, "blend_bwd_kernel"),
                    attention_fwd_device_ms_per_step=kernel_ms(
-                       by_kernel, "flash_full_kernel" if route == "general"
+                       by_kernel, FULL_FWD_KERNELS if route == "general"
                        else "flash_fwd_kernel"),
                    attention_bwd_device_ms_per_step=kernel_ms(
                        by_kernel, "flash_full_bwd" if route == "general"
@@ -1668,9 +1673,15 @@ def phase_train_512(torch, dev, pretrained: str, spot: dict) -> dict:
                        profile=False, loaded=spot)
 
 
-def kernel_ms(by_kernel: dict, prefix: str) -> float:
+def kernel_ms(by_kernel: dict, prefix) -> float:
+    """The summed ms of the kernels whose names start with `prefix` (a
+    string or a tuple of them)."""
     return sum(ms for name, ms in by_kernel.items()
                if name.startswith(prefix))
+
+
+# flash_full_fwd.cu's kernels: #5 / #6 and #5s
+FULL_FWD_KERNELS = ("flash_full_kernel", "flash_full_stats_kernel")
 
 
 def roof(res: dict) -> dict:
@@ -1712,14 +1723,12 @@ def ptxas_summary(log: str, entry: str) -> dict:
         if m:
             name = m.group(1) if entry in m.group(1) else None
             if name:
-                args = re.search(r"ILi(\d+)ELb([01])ELb([01])E"
-                                 r"(?:Lb([01])E)?", name)
+                args = re.search(r"ILi(\d+)ELb([01])ELb([01])E", name)
                 kern = re.search(r"([a-z_]+_kernel)ILi(\d+)E", name)
                 plain = re.search(r"\d([a-z_]+_kernel)E", name)
                 if args:
                     name = "DH={} split={} score_bf16={}".format(
-                        *args.groups()[:3])
-                    name += " stats=1" if args.group(4) == "1" else ""
+                        *args.groups())
                 elif kern:
                     name = "{} DH={}".format(*kern.groups())
                 elif plain:
@@ -1823,7 +1832,7 @@ def phase_general_kernel(torch, dev) -> dict:
     except FileNotFoundError:
         log = None
     build = ptxas_summary(log, "flash_full_kernel") if log else None
-    serialised = re.findall(r"C75(?:15|19|20)", log or "")
+    serialised = re.findall(SERIALISATION, log or "")
     split = device_ms_by_kernel(torch, lambda: attention.flash_full_mha(
         q, k, v))
     qp, kp, vp = fused_heads(torch, dev, gen, 1, 1100, 5, 20)
@@ -1887,8 +1896,7 @@ def phase_general_kernel(torch, dev) -> dict:
             "flash_full_fwd.log reports no flash_full_kernel")
     if serialised:
         raise AssertionError(f"ptxas serialised wgmma in flash_full_fwd.cu "
-                             f"({len(serialised)} warnings C7515/C7519/"
-                             f"C7520)")
+                             f"({len(serialised)} warnings C7514-C7520)")
     return res
 
 
@@ -1971,7 +1979,7 @@ def general_sampling(torch, dev, label: str, overrides, counter: str,
     res = {"seconds_per_asset": secs,
            "device_ms_per_asset": sum(by_kernel.values()),
            "general_kernel_device_ms_per_asset": kernel_ms(
-               by_kernel, "flash_full_kernel"),
+               by_kernel, FULL_FWD_KERNELS),
            "max_memory_allocated_bytes": peak,
            "launches": launches, "expected_launches": want,
            "blend_launches": blend_launches,
@@ -2227,9 +2235,10 @@ def general_train_case(torch, dev, gen, b, n, h, d, q0, q1, lk,
 
 
 def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
-    """#5s and #5b by CUDA events beside their twins, SDPA's forward on the
-    same inputs, SDPA's backward alone (autograd.grad over a retained
-    graph) and their bounds; the backward's device ms by kernel."""
+    """#5s and #5b by CUDA events (and by CUDA-graph replay) beside their
+    twins, SDPA's forward on the same inputs, SDPA's backward alone
+    (autograd.grad over a retained graph) and their bounds; #5s's plan;
+    the backward's device ms by kernel."""
     import torch.nn.functional as F
 
     from open_diffusiongs_tpu_torch.ops import attention
@@ -2251,8 +2260,15 @@ def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
     for _ in range(20):
         bwd()
     host_us = (time.perf_counter() - t0) / 20 * 1e6
-    res = {"fwd_ms": cuda_ms(lambda: attention.flash_full_mha_stats(q, k, v),
-                             20),
+    def fwd():
+        return attention.flash_full_mha_stats(q, k, v)
+
+    res = {"fwd_ms": cuda_ms(fwd, 20),
+           # #5s by CUDA-graph replay: its launch without the host's time
+           "fwd_graph_ms": graph_ms(fwd, 20),
+           "fwd_plan": attention.full_fwd_plan(
+               b, l, k.shape[1], h, d, torch.cuda.get_device_properties(0)
+               .multi_processor_count)._asdict(),
            "bwd_ms": cuda_ms(bwd, 20),
            # the backward's three launches: the prep alone by CUDA
            # events, the main pass and the epilogue the rest (by kernel
@@ -2294,9 +2310,12 @@ def general_train_timing(torch, q, k, v, o, do, lse) -> dict:
     return res
 
 
-# How many times phases 16a and 21a launch #5b on the same inputs, and how
-# many of those launches run while a second stream keeps the card busy
+# How many times phases 16a and 21a launch #5b (and #5s) on the same
+# inputs, and how many of those launches run while a second stream keeps
+# the card busy
 BWD_REPEATS, BWD_CONTENDED = 5, 2
+# ptxas' wgmma serialisation warnings (lost overlap): C7514-C7520
+SERIALISATION = r"C75(?:1[4-9]|20)"
 # Any way CUDA source can add floats atomically: the atomic intrinsics
 # (overloaded, so none at all), PTX red / atom on a float type, and TMA's
 # bulk reductions (tests/test_torch_build.py holds the same pattern)
@@ -2307,7 +2326,7 @@ DELTA_REL_BOUND = 1e-5   # prep's delta vs _full_delta, of max sum|dO * O|
 
 
 def bwd_repeats(torch, fn) -> dict:
-    """BWD_REPEATS calls of the backward fn() on the same inputs, the last
+    """BWD_REPEATS calls of fn() (#5b, or #5s) on the same inputs, the last
     BWD_CONTENDED while a second stream runs large matmuls (the card's SMs
     taken first by other work, so the CTAs start in another order and
     wait on each other longer): whether every call equals the first bit
@@ -2416,6 +2435,11 @@ def phase_general_train_kernels(torch, dev) -> dict:
                               ("16x48", timed["h16_d48"]),
                               ("queries 1026:4098 over 4098 keys",
                                kept["queries 1026:4098 over 4098 keys"]))}
+    # #5s: every o and lse element is one row's sums in one fixed order
+    fwd_repeats = {key: bwd_repeats(torch, lambda x=x: attention
+                                    .flash_full_mha_stats(*x[:3]))
+                   for key, x in (("16x64", timed["h16_d64"]),
+                                  ("16x48", timed["h16_d48"]))}
     prep = {key: full_bwd_prep_check(torch, *x[:5])
             for key, x in (("16x64", timed["h16_d64"]),
                            ("queries 1026:4098 over 4098 keys",
@@ -2445,21 +2469,21 @@ def phase_general_train_kernels(torch, dev) -> dict:
             .float()).abs().mean())}
     del q3, o3
     builds, warnings = {}, 0
-    for src, entry in (("flash_full_fwd.cu", "flash_full_kernel"),
+    for src, entry in (("flash_full_fwd.cu", "flash_full_stats_kernel"),
                        ("flash_full_bwd.cu", "flash_full_bwd")):
         try:
             log = _build.build_log(src)
         except FileNotFoundError:
             raise AssertionError(f"the build holds no report of {src}")
         builds.update({f"{src} {k}": v
-                       for k, v in ptxas_summary(log, entry).items()
-                       if src != "flash_full_fwd.cu" or "stats=1" in k})
-        warnings += len(re.findall(r"C75(?:14|15|19|20)", log))
+                       for k, v in ptxas_summary(log, entry).items()})
+        warnings += len(re.findall(SERIALISATION, log))
     times = {key: general_train_timing(torch, *inputs)
              for key, inputs in timed.items()}
     del timed, q, k, v, o, do, lse
     torch.cuda.empty_cache()
     res = {"cases": cases, "times": times, "bwd_repeats": repeats,
+           "fwd_repeats": fwd_repeats,
            "bwd_prep": prep, "bwd_source_float_atomics": float_atomics,
            "bwd_sass": sass, "prescale": prescale,
            "ptxas": builds, "ptxas_serialisation_warnings": warnings,
@@ -2485,6 +2509,10 @@ def phase_general_train_kernels(torch, dev) -> dict:
         if not r["bit_identical"]:
             raise AssertionError(f"#5b at {key}: dq/dk/dv differ between "
                                  f"launches on the same inputs: {r}")
+    for key, r in fwd_repeats.items():
+        if not r["bit_identical"]:
+            raise AssertionError(f"#5s at {key}: o / lse differ between "
+                                 f"launches on the same inputs: {r}")
     for key, r in prep.items():
         if not (r["q_tilde_bit_exact"] and r["delta_ok"]
                 and r["counters_zero"]):
@@ -2499,7 +2527,7 @@ def phase_general_train_kernels(torch, dev) -> dict:
             < 0.5 * prescale["mean_err_to_serving_twin"]):
         raise AssertionError(f"#5s does not compute the training function: "
                              f"{prescale}")
-    if len(builds) != 4 + 4 + 2:   # 4 STATS tiles; #5b's pass at 4 tiles,
+    if len(builds) != 4 + 4 + 2:   # #5s at 4 tiles; #5b's pass at 4 tiles,
         # its prep and epilogue
         raise AssertionError(f"ptxas reports {sorted(builds)}")
     spills = {k: v for k, v in builds.items()
@@ -5453,21 +5481,27 @@ def phase_wide_kernels(torch, dev) -> dict:
         q.float() * attention._train_scale(128, q.dtype)).to(torch.bfloat16))
     repeats = bwd_repeats(torch, lambda: attention.flash_full_mha_bwd(
         q, k, v, o, do, lse))
+    fwd_repeats = bwd_repeats(torch, lambda: attention.flash_full_mha_stats(
+        q, k, v))
     builds, warnings = {}, 0
-    for src, entry in (("flash_full_fwd.cu", "flash_full_kernel"),
+    for src, entry in (("flash_full_fwd.cu", "flash_full_stats_kernel"),
                        ("flash_full_bwd.cu", "flash_full_bwd")):
         log = _build.build_log(src)
         builds.update({f"{src} {key}": val for key, val in
                        ptxas_summary(log, entry).items()
                        if "DH=128" in key})
-        warnings += len(re.findall(r"C75(?:14|15|19|20)", log))
+        warnings += len(re.findall(SERIALISATION, log))
     times = general_train_timing(torch, q, k, v, o, do, lse)
     times["splash_ms"] = cuda_ms(lambda: attention.splash_mha(q, k, v), 20)
+    times["splash_graph_ms"] = graph_ms(lambda: attention.splash_mha(q, k, v),
+                                        20)
     del timed, q, k, v, o, do, lse
     torch.cuda.empty_cache()
     # the serving forward at the sampler's shape, b = 1
     q1, k1, v1 = fused_heads(torch, dev, gen, 1, 4098, 8, 128)
     serving = {"ms": cuda_ms(lambda: attention.splash_mha(q1, k1, v1), 20),
+               "graph_ms": graph_ms(lambda: attention.splash_mha(q1, k1, v1),
+                                    20),
                "plain_ms": cuda_ms(lambda: full_twin_by_head(
                    torch, attention.flash_full_mha_stats_ref, 8, q1, k1,
                    v1), 1),
@@ -5477,7 +5511,8 @@ def phase_wide_kernels(torch, dev) -> dict:
     del q1, k1, v1
     res = {"cases": cases, "times": times, "serving_b1": serving,
            "train_prescale_helper_bit_exact": helper,
-           "bwd_repeats_8x128": repeats, "ptxas": builds,
+           "bwd_repeats_8x128": repeats, "fwd_repeats_8x128": fwd_repeats,
+           "ptxas": builds,
            "ptxas_serialisation_warnings": warnings,
            "max_abs_err_fwd": max(max(c["o_max_abs"], c["lse_max_abs"])
                                   for c in cases.values()),
@@ -5509,6 +5544,10 @@ def phase_wide_kernels(torch, dev) -> dict:
         raise AssertionError(f"#5b at 8 heads of 128: dq/dk/dv differ "
                              f"between launches on the same inputs: "
                              f"{repeats}")
+    if not fwd_repeats["bit_identical"]:
+        raise AssertionError(f"#5s at 8 heads of 128: o / lse differ "
+                             f"between launches on the same inputs: "
+                             f"{fwd_repeats}")
     if len(builds) != 2:   # #5s and #5b's pass at DH = 128
         raise AssertionError(f"ptxas reports {sorted(builds)} at DH = 128")
     spills = {key: val for key, val in builds.items()
@@ -6025,10 +6064,11 @@ def main() -> int:
          "source": src + "flash_full_fwd.cu",
          "replaces": "open_diffusiongs_tpu/models/transformer.py:141 "
                      "(_ffsb_fwd: splash's forward, a JAX library kernel; "
-                     "the STATS flag of #5's file)",
+                     "flash_full_stats_kernel of #5's file)",
          "launches": general_train["launches"]["general_fwd_lse"],
          "max_abs_err": general_kernels["max_abs_err_fwd"],
          "ms": t64["fwd_ms"], "plain_ms": t64["fwd_plain_ms"],
+         "ms_graph": t64["fwd_graph_ms"],
          **roof(t64["fwd_bound"]), "library_ms": t64["sdpa_fwd_ms"],
          "ms_d48": t48["fwd_ms"], "bound_ms_d48": t48["fwd_bound"]["bound_ms"],
          "library_ms_d48": t48["sdpa_fwd_ms"],
@@ -6056,6 +6096,7 @@ def main() -> int:
          "launches": wide_dit["sampling"]["launches"]["LAUNCHES_SPLASH"],
          "max_abs_err": wide["max_abs_err_fwd"],
          "ms": wide["times"]["splash_ms"],
+         "ms_graph": wide["times"]["splash_graph_ms"],
          "plain_ms": wide["times"]["fwd_plain_ms"],
          **roof(wide["times"]["fwd_bound"]),
          "library_ms": wide["times"]["sdpa_fwd_ms"],
@@ -6071,6 +6112,7 @@ def main() -> int:
          "launches": wide_dit["train"]["launches"]["general_fwd_lse"],
          "max_abs_err": wide["max_abs_err_fwd"],
          "ms": wide["times"]["fwd_ms"],
+         "ms_graph": wide["times"]["fwd_graph_ms"],
          "plain_ms": wide["times"]["fwd_plain_ms"],
          **roof(wide["times"]["fwd_bound"]),
          "library_ms": wide["times"]["sdpa_fwd_ms"]},

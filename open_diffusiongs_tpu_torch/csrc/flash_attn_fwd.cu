@@ -176,7 +176,7 @@ __device__ __forceinline__ void fwd_consumer(const FwdParams& p,
       for (int off = 1; off < 32; off <<= 1)
         mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, off));
       if (lane == 0) s.red[wg][j & 1][warp] = mt0;
-      named_barrier_sync(1 + wg);   // red[wg][j & 1] is rewritten two tiles
+      bar_sync(1 + wg, WG);         // red[wg][j & 1] is rewritten two tiles
                                     // later, after the next tile's barrier
 #pragma unroll
       for (int w = 0; w < 4; ++w) mt0 = fmaxf(mt0, s.red[wg][j & 1][w]);

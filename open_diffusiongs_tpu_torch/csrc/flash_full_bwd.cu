@@ -207,14 +207,6 @@ __device__ __forceinline__ unsigned take_ticket(unsigned* t) {
   return old;
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
 // Write this thread's rows row0, row0 + 8 (those < rows) and columns < d
 // of a [64, DH] accumulator, scaled, into head `head` of batch element bi
 // of a contiguous [b, rows, h, d] tensor.

@@ -254,10 +254,22 @@ __device__ __forceinline__ void tma_load_heads(__nv_bfloat16* dst,
     tma_load_4d(dst + sp * box_rows * SP, map, bar, sp * SP, head, row, bi);
 }
 
-// Synchronise the 128 threads of one warpgroup (ids 1.. are free: 0 is
-// __syncthreads).
-__device__ __forceinline__ void named_barrier_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+// Named barrier `id` (ids 1.. are free: 0 is __syncthreads) over n threads
+// (a multiple of 32; 128: one warpgroup): bar_sync arrives and waits,
+// bar_arrive arrives without waiting (a signal to the threads that sync on
+// it).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operands, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int N>
@@ -319,6 +331,22 @@ __device__ __forceinline__ void load_a_frags(const __nv_bfloat16* tile,
     }
 }
 
+// load_a_frags' inverse: f written back to the same places of the tile.
+template <int DH>
+__device__ __forceinline__ void store_a_frags(__nv_bfloat16* tile, int row0,
+                                              int t4,
+                                              const uint32_t (&f)[DH / 16][4]) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
+      *reinterpret_cast<uint32_t*>(base + swz<DH>(row * DH * 2 + col * 2)) =
+          f[kk][i];
+    }
+}
+
 // wgmma shared-memory descriptor of a swizzled [rows, DH] bf16 tile.
 // K-major operand (DH is the reduction axis, e.g. K of q~.K^T): 8-row
 // groups SBO = 8 * DH * 2 bytes apart; step k16 by adding 32 bytes.
@@ -375,6 +403,19 @@ __device__ __forceinline__ void load_a_frags_tile(const __nv_bfloat16* tile,
                          &f[sp * SP / 16]));
 }
 
+// store_a_frags over all spans of a span-stored tile.
+template <int DH>
+__device__ __forceinline__ void store_a_frags_tile(__nv_bfloat16* tile,
+                                                   int rows, int row0, int t4,
+                                                   uint32_t (&f)[DH / 16][4]) {
+  constexpr int SP = span_of<DH>();
+#pragma unroll
+  for (int sp = 0; sp < DH / SP; ++sp)
+    store_a_frags<SP>(tile + sp * rows * SP, row0, t4,
+                      *reinterpret_cast<uint32_t(*)[SP / 16][4]>(
+                          &f[sp * SP / 16]));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
   return *reinterpret_cast<uint32_t*>(&v);
@@ -386,7 +427,8 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // B's transpose bit: 0 for a K-major B, 1 for an MN-major B.  scale_d = 0
 // overwrites D.  `rs` takes A from registers; `ss` (A from shared memory)
 // exists for N = 16, 32 and 64, the backward kernels' products on staged
-// tiles; at N = 16 and 32 its TA is A's transpose bit (1: an MN-major A).
+// tiles, and for N = 128, #5s's scores on q~ in shared memory; at N = 16
+// and 32 its TA is A's transpose bit (1: an MN-major A).
 template <int N>
 struct Wgmma;
 
@@ -545,6 +587,67 @@ struct Wgmma<128> {
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
           "n"(TB));
+  }
+  // A from shared memory (K-major descriptor)
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  }
+  // A from shared memory, D = A . B: the accumulator is written only, so
+  // its registers are free before the product (ss with scale_d = 0)
+  template <int TB>
+  static __device__ __forceinline__ void ss_init(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),
+        "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),
+        "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]),
+        "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]),
+        "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]),
+        "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]),
+        "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(a), "l"(b), "r"(0), "n"(TB));
   }
 };
 

@@ -59,9 +59,9 @@ SIGNATURES = {
     "odgs_flash_full_fwd_bf16": [_P] * 4 + [_I] * 6 + [_F] + [_L] * 9
                                 + [_I, _I, _P],
     # q, k, v, o, lse, b, lq, lk, h, d, dm, scale (bf16(d^-1/2)), q/k/v
-    # batch, row and head strides (elements), stream
+    # batch, row and head strides (elements), grid (CTAs), stream
     "odgs_flash_full_fwd_stats_bf16": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9
-                                      + [_P],
+                                      + [_I, _P],
     # q, o, dout, q~ (out), delta (out), counters, b, lq, h, d, dm,
     # n_counters, scale (bf16(d^-1/2)), q/o/dout batch, row and head
     # strides (elements), stream

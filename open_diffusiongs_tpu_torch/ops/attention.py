@@ -8,9 +8,9 @@ Counterparts of open_diffusiongs_tpu/ops/attention.py:
     csrc/flash_attn_bwd.cu (the dQ and dK/dV kernels);
   * `flash_full_mha` (:638-665) on [b, l, h, d], the DiT's general route:
     csrc/flash_full_fwd.cu, which also runs the bench variant `mha_full`
-    of tools/bench_attn2.py (:89-126) on [h, L, 64] and, with its STATS
-    flag, the route's training forward; csrc/flash_full_bwd.cu is that
-    forward's backward (see below).
+    of tools/bench_attn2.py (:89-126) on [h, L, 64] and, in a kernel of
+    its own (flash_full_stats_kernel), the route's training forward;
+    csrc/flash_full_bwd.cu is that forward's backward (see below).
 All the kernels are warp-specialised TMA + mbarrier rings feeding `wgmma`
 (csrc/hopper.cuh).
 The plain versions (`*_ref`) compute the same functions with explicit f32
@@ -87,6 +87,11 @@ FULL_MAX_D = 64            # widest head of #5 (JAX's flash_full_mha)
 SPLASH_MAX_D = 128         # widest head of #5s / #5b (the splash route)
 SMAX_BLOCK_ROWS = 64       # q rows per block of the scalar-max kernel
 FULL_BWD_KEYS = 128        # keys per CTA of #5b's main pass (a key block)
+# #5s (csrc/flash_full_fwd.cu, flash_full_stats_kernel): keys of a key
+# tile, and the base-2 rise of a row's max that moves it (the schedule by
+# tile width: full_fwd_schedule)
+FULL_FWD_KEYS = 128
+FULL_FWD_RESCALE_TAU = 8.0
 
 
 def _check_shapes(q, k, v, num_heads: int, l_real=None, lq_real=None,
@@ -694,6 +699,62 @@ def flash_full_mha_bwd_ref(q, k, v, o, do, lse):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+class FullFwdSchedule(NamedTuple):
+    """#5s's schedule at a head tile (csrc/flash_full_fwd.cu, Sched):
+    `consumers` warpgroups of 64 q rows (three run their key tiles
+    serially, two take turns: `pingpong`), `stages` of the K / V ring, and
+    the setmaxnreg counts of a consumer warpgroup and of the producer's."""
+    pingpong: bool
+    consumers: int
+    stages: int
+    consumer_regs: int
+    producer_regs: int
+
+
+def full_fwd_schedule(tile: int) -> FullFwdSchedule:
+    """Three serial consumers at tiles <= 64, two in ping-pong at 128."""
+    if tile > 64:
+        return FullFwdSchedule(True, 2, 3, 240, 24)
+    return FullFwdSchedule(False, 3, 4, 160, 32)
+
+
+class FullFwdPlan(NamedTuple):
+    """How #5s covers one call: `tile` the head tile, `rows` the q rows of
+    a tile (64 a consumer), `n_q_tiles` / `n_key_tiles` the q tiles and
+    FULL_FWD_KEYS-key tiles of one (batch, head), `tail_keys` the keys of
+    the last key tile, `tiles` the q tiles of the call, `grid` the CTAs of
+    the persistent walk (one an SM, at most one a tile), `smem_bytes` a
+    CTA's dynamic shared memory, `pitch` the lse row pitch."""
+    tile: int
+    rows: int
+    n_q_tiles: int
+    n_key_tiles: int
+    tail_keys: int
+    tiles: int
+    grid: int
+    smem_bytes: int
+    pitch: int
+
+
+def full_fwd_plan(b: int, lq: int, lk: int, h: int, d: int, n_sm: int
+                  ) -> FullFwdPlan:
+    """#5s's plan for q [b, lq, h, d] over lk keys on a card of n_sm SMs.
+    Shared memory: the q tile and the stages of K and V, each 1024-byte
+    aligned, the ring's mbarriers, and 1024 bytes of alignment slack
+    (csrc/hopper.cuh, smem_bytes)."""
+    tile = full_tile_width(d)
+    sched = full_fwd_schedule(tile)
+    rows, keys = 64 * sched.consumers, FULL_FWD_KEYS
+    n_qt = -(-lq // rows)
+    n_kt = -(-lk // keys)
+    tiles = b * h * n_qt
+    tiles_bytes = 2 * tile * (rows + 2 * sched.stages * keys)
+    barriers = 8 * (2 * sched.stages + 2)
+    smem = -(-(tiles_bytes + barriers) // 1024) * 1024 + 1024
+    return FullFwdPlan(tile, rows, n_qt, n_kt, lk - (n_kt - 1) * keys, tiles,
+                       max(1, min(tiles, n_sm)), smem, stats_pitch(lq))
+
+
 def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """#5s: the general route's training forward on q [b, l, h, d] and k/v
     [b, lk, h, d] (any d <= 128, lk may differ from l).  Returns o, a new
@@ -701,9 +762,9 @@ def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     (on the card a view of the backward's [b, h, stats_pitch(l)] layout).
 
     CPU tensors: `flash_full_mha_stats_ref`.  CUDA tensors: the sm_90a
-    kernel of csrc/flash_full_fwd.cu with its STATS flag (bf16, views read
-    as `flash_full_mha` reads them).  It records no gradient: see
-    `FlashFullMHA`."""
+    kernel flash_full_stats_kernel of csrc/flash_full_fwd.cu (bf16, views
+    read as `flash_full_mha` reads them, a persistent grid of
+    `full_fwd_plan`).  It records no gradient: see `FlashFullMHA`."""
     global LAUNCHES_FULL_STATS
     _check_full(q, k, v, SPLASH_MAX_D)
     if q.device.type == "cpu":
@@ -715,19 +776,21 @@ def flash_full_mha_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def _launch_stats(what: str, q, k, v):
-    """One launch of csrc/flash_full_fwd.cu's STATS forward (the training
-    function) on bf16 CUDA views.  Returns o [b, l, h, d] and the lse
-    [b, h, l], a view of its [b, h, stats_pitch(l)] f32 buffer."""
+    """One launch of #5s (the training function; csrc/flash_full_fwd.cu,
+    flash_full_stats_kernel) on bf16 CUDA views.  Returns o [b, l, h, d]
+    and the lse [b, h, l], a view of its [b, h, stats_pitch(l)] f32
+    buffer."""
     b, l, lk, h, d = _check_full(q, k, v, SPLASH_MAX_D)
     _check_bf16_cuda(what, dict(q=q, k=k, v=v), aligned=False)
+    plan = full_fwd_plan(b, l, lk, h, d, _sm_count(q.device.index or 0))
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, stats_pitch(l)), dtype=torch.float32,
+    lse = torch.empty((b, h, plan.pitch), dtype=torch.float32,
                       device=q.device)
     (q, k, v), dm = _full_operands(q, k, v)
     err = _build.load_library().odgs_flash_full_fwd_stats_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, l, lk, h, d, dm, _train_scale(d, q.dtype),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], plan.grid,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
     return out, lse[..., :l]
@@ -902,7 +965,7 @@ def splash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     [b, l, h, d] tensor in q's dtype.
 
     CPU tensors: `flash_full_mha_stats_ref`'s output.  CUDA tensors:
-    csrc/flash_full_fwd.cu's STATS forward, its lse dropped (the training
+    #5s's kernel (`flash_full_mha_stats`), its lse dropped (the training
     pre-scale `_train_scale`, not #5's `_full_scale`); no gradient."""
     global LAUNCHES_SPLASH
     _check_full(q, k, v, SPLASH_MAX_D)

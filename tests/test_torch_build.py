@@ -277,6 +277,74 @@ def test_split_p_carries_p_to_2_pow_minus_16():
     assert ((p - hi).abs() < p * 2.0 ** -7).all()
 
 
+def test_split_p_carries_p_to_2_pow_minus_16_up_to_2_pow_tau():
+    """#5s takes P against a stale running max (flash_full_stats_kernel,
+    RESCALE_TAU), so its P reaches 2^TAU; the split is scale-free (P_lo is
+    rounded relative to P - P_hi), so P_hi + P_lo stays within 2^-16 P over
+    P from 2^-100 to 2^TAU."""
+    g = torch.Generator().manual_seed(1)
+    tau = attention.FULL_FWD_RESCALE_TAU
+    p = torch.exp2(tau - (100 + tau) * torch.rand(1_000_000, generator=g))
+    p[:2] = torch.tensor([2.0 ** tau, 2.0 ** tau * (1 - 2.0 ** -24)])
+    hi = (p.view(torch.int32) & -65536).view(torch.float32)
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert torch.equal(hi.to(torch.bfloat16).float(), hi)
+    assert ((p - hi - lo).abs() <= p * 2.0 ** -16).all()
+
+
+def _stale_max_attention(s, v, tau, keys=128):
+    """#5s's online softmax in f32, as flash_full_stats_kernel runs it on f32
+    scores s [rows, lk] (natural base) over key tiles of `keys`: a row's
+    max moves only when a tile raises it by more than tau in base 2, P =
+    2^(s log2 e - m log2 e) split into P_hi + P_lo for P.V, l sums the
+    unrounded P.  Returns o, lse (base 2) and the largest P taken."""
+    import numpy as np
+    log2e = np.float32(attention.LOG2E)
+    rows, lk = s.shape
+    m = np.full(rows, -np.inf, np.float32)
+    l = np.zeros(rows, np.float32)
+    o = np.zeros((rows, v.shape[1]), np.float32)
+    p_max = 0.0
+    for k0 in range(0, lk, keys):
+        st = s[:, k0:k0 + keys]
+        mt = np.maximum(m, st.max(1))
+        up = (mt - m) * log2e > np.float32(tau)
+        alpha = np.where(up, np.exp2((m - mt) * log2e), np.float32(1))
+        m = np.where(up, mt, m).astype(np.float32)
+        p = np.exp2(st * log2e - (m * log2e)[:, None]).astype(np.float32)
+        p_max = max(p_max, float(p.max()))
+        hi = (p.view(np.int32) & np.int32(-65536)).view(np.float32)
+        lo = torch.from_numpy(p - hi).to(torch.bfloat16).float().numpy()
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        o = o * alpha[:, None] + (hi @ v[k0:k0 + keys] + lo @ v[k0:k0 + keys])
+    return o / l[:, None], m * log2e + np.log2(l), p_max
+
+
+@pytest.mark.parametrize("trend", [0.0, 0.004, -0.004])
+def test_stale_max_is_the_same_function(trend):
+    """The stale max changes only roundings: o and lse within f32 rounding
+    of the exact (f64) softmax at tau = 8 as at tau = 0 (the max moved at
+    every rise), P never above 2^tau, and with scores that rise slowly
+    along the keys the max stays stale (P > 1 is taken)."""
+    import numpy as np
+    rng = np.random.default_rng(19)
+    rows, lk, d = 64, 1100, 16
+    s = (rng.standard_normal((rows, lk)) * 3
+         + trend * np.arange(lk)).astype(np.float32)
+    v = rng.standard_normal((lk, d)).astype(np.float32)
+    s64 = s.astype(np.float64) * attention.LOG2E
+    w = np.exp2(s64 - s64.max(1, keepdims=True))
+    o_ref = (w @ v.astype(np.float64)) / w.sum(1, keepdims=True)
+    lse_ref = s64.max(1) + np.log2(w.sum(1))
+    for tau in (0.0, attention.FULL_FWD_RESCALE_TAU):
+        o, lse, p_max = _stale_max_attention(s, v, tau)
+        assert np.abs(o - o_ref).max() <= 2e-5 * np.abs(o_ref).max()
+        assert np.abs(lse - lse_ref).max() <= 2e-5
+        assert p_max <= 2.0 ** tau
+        if trend > 0 and tau > 0:
+            assert p_max > 1.0
+
+
 @pytest.mark.parametrize("dh", attention.PACKED_DH)
 def test_prescaled_q_rounds_once_from_f32(dh):
     """q~ (the forward's and the backward's) is bf16(f32(q) * f32(scale))
